@@ -1,0 +1,98 @@
+"""Carry pipeline state between NumPy arrays and the port's structures.
+
+The JAX package keeps k-mer words as uint32 and indices as int32; the
+port keeps words as int64 values in [0, 2**32) and indices as int64.
+These functions convert both ways, so that state produced elsewhere
+(for example the JAX package's counted table or built graph, read out
+with ``numpy.asarray``) can enter any stage of the port, and the port's
+state can be compared bit for bit with it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .graph.graph import Graph
+from .kmers.counter import KmerTable
+from .kmers.extension import VertexTable
+
+GRAPH_FIELDS = ("seq_flat", "seq_start", "seq_len", "cov", "start_v",
+                "end_v", "conj", "alive", "num_edges", "flank")
+
+
+def fields_of(obj, names) -> dict:
+    """{name: numpy array} of the named attributes of ``obj`` (None
+    stays None)."""
+    out = {}
+    for name in names:
+        value = getattr(obj, name)
+        out[name] = None if value is None else np.asarray(value)
+    return out
+
+
+def _words(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+def _scalar(a, device) -> torch.Tensor:
+    return torch.tensor(int(a), dtype=torch.int64, device=device)
+
+
+def _as(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a).astype(dtype))).to(device)
+
+
+def kmer_table_from_numpy(kmers, counts, num, device="cpu") -> KmerTable:
+    """uint32 (N, W) words, (N,) counts and a row count -> KmerTable."""
+    return KmerTable(_words(kmers, device), _as(counts, np.int32, device),
+                     _scalar(num, device))
+
+
+def kmer_table_to_numpy(t: KmerTable) -> dict:
+    """KmerTable -> {kmers: uint32 (N, W), counts: int32, num: int}."""
+    return {"kmers": t.kmers.cpu().numpy().astype(np.uint32),
+            "counts": t.counts.cpu().numpy().astype(np.int32),
+            "num": int(t.num)}
+
+
+def vertex_table_from_numpy(kmers, out_mask, in_mask, num,
+                            device="cpu") -> VertexTable:
+    return VertexTable(_words(kmers, device),
+                       _as(out_mask, np.uint8, device),
+                       _as(in_mask, np.uint8, device),
+                       _scalar(num, device))
+
+
+def vertex_table_to_numpy(vt: VertexTable) -> dict:
+    return {"kmers": vt.kmers.cpu().numpy().astype(np.uint32),
+            "out_mask": vt.out_mask.cpu().numpy(),
+            "in_mask": vt.in_mask.cpu().numpy(),
+            "num": int(vt.num)}
+
+
+def graph_from_numpy(arrays: dict, k: int, device="cpu") -> Graph:
+    """{field: numpy array} (``GRAPH_FIELDS``; flank may be None) -> Graph."""
+    flank = arrays.get("flank")
+    return Graph(
+        seq_flat=_as(arrays["seq_flat"], np.uint8, device),
+        seq_start=_as(arrays["seq_start"], np.int64, device),
+        seq_len=_as(arrays["seq_len"], np.int64, device),
+        cov=_as(arrays["cov"], np.float32, device),
+        start_v=_as(arrays["start_v"], np.int64, device),
+        end_v=_as(arrays["end_v"], np.int64, device),
+        conj=_as(arrays["conj"], np.int64, device),
+        alive=_as(arrays["alive"], np.bool_, device),
+        num_edges=_scalar(arrays["num_edges"], device),
+        k=k,
+        flank=None if flank is None else _as(flank, np.float32, device))
+
+
+def graph_to_numpy(g: Graph) -> dict:
+    """Graph -> {field: numpy array}, indices as int64, num_edges as int."""
+    out = {name: (None if getattr(g, name) is None
+                  else getattr(g, name).cpu().numpy())
+           for name in GRAPH_FIELDS if name != "num_edges"}
+    out["num_edges"] = int(g.num_edges)
+    return out

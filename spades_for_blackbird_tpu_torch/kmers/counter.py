@@ -1,0 +1,131 @@
+"""Canonical k-mer counting: reads -> sorted unique (k-mer, count) table.
+
+PyTorch counterpart of ``spades_for_blackbird_tpu/kmers/counter.py``:
+extract and canonicalise (the CUDA kernel on the card,
+``ops/kmer_cuda.py``), sort, run-length reduce.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import chunking, dna, kmer_cuda, segments
+
+# reads per counting chunk when the reads lie on the CPU
+CPU_CHUNK_READS = 1 << 20
+
+
+class KmerTable(NamedTuple):
+    """Sorted unique canonical k-mers with counts (padded ragged).
+
+    kmers: (N, W) int64 words, lexicographically sorted; rows >= num are
+      all-ones padding.
+    counts: (N,) int32.
+    num: 0-dim int64 tensor, the number of real rows.
+    """
+    kmers: torch.Tensor
+    counts: torch.Tensor
+    num: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.kmers.shape[0]
+
+
+def count_kmers(codes: torch.Tensor, lengths: torch.Tensor, k: int
+                ) -> KmerTable:
+    """Count canonical k-mers of a read batch (one chunk)."""
+    # all-ones is unreachable for real k-mers when pad bits exist
+    sentinel_safe = (k % dna.BASES_PER_WORD) != 0
+    words, valid = kmer_cuda.extract_canonical_cols(
+        codes.contiguous(), lengths.to(torch.int32).contiguous(), k,
+        sentinel_safe)
+    if sentinel_safe:
+        # invalid windows already hold the all-ones sentinel: the sort
+        # operands are the kernel's columns
+        uniq, counts, num = segments.count_sorted_cols(list(words.unbind(0)),
+                                                       valid)
+    else:
+        uniq, counts, num = segments.count_sorted(words.t(), valid)
+    return KmerTable(uniq, counts.to(torch.int32), num)
+
+
+def filter_min_count(table: KmerTable, min_count: int) -> KmerTable:
+    """Drop k-mers with count < min_count (keeps sort order)."""
+    rows = torch.arange(table.capacity, device=table.kmers.device)
+    keep = (table.counts >= min_count) & (rows < table.num)
+    num, (kmers, counts) = segments.compact(keep, table.kmers, table.counts)
+    # compact() zero-fills; restore all-ones padding so the table stays
+    # sorted-with-padding-last for binary search
+    kmers = torch.where((rows >= num)[:, None], dna.WORD_MASK, kmers)
+    return KmerTable(kmers, counts, num)
+
+
+def trim_table(t: KmerTable) -> KmerTable:
+    """Cut capacity to the power of two at or above ``num`` (never
+    above the current capacity); rows past ``num`` are padding."""
+    cap = 1 << max(1, int(t.num) - 1).bit_length()
+    cap = min(cap, t.capacity)
+    return KmerTable(t.kmers[:cap], t.counts[:cap], t.num)
+
+
+def chunk_reads_for(read_len: int, k: int, device: torch.device) -> int:
+    """Reads per counting chunk.
+
+    On the card the chunk is sized from the free device memory: a
+    quarter of it over the bytes a read's windows take through
+    extraction, widening and the sort passes (about 48*W + 64 bytes a
+    window), rounded down to a power of two. On the CPU it is
+    ``CPU_CHUNK_READS``.
+    """
+    if device.type != "cuda":
+        return CPU_CHUNK_READS
+    per_read = max(read_len - k + 1, 1) * (48 * dna.words_per_kmer(k) + 64)
+    free, _ = torch.cuda.mem_get_info(device)
+    n = max(1 << 12, min(1 << 24, free // 4 // per_read))
+    return 1 << (n.bit_length() - 1)
+
+
+def count_kmers_chunked(codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                        chunk_reads: int | None = None) -> KmerTable:
+    """Count k-mers of a batch too large for one sort: each read chunk is
+    counted, and the sorted unique tables merge pairwise."""
+    if chunk_reads is None:
+        chunk_reads = chunk_reads_for(codes.shape[1], k, codes.device)
+    R = codes.shape[0]
+    if R <= chunk_reads:
+        return count_kmers(codes, lengths, k)
+    codes_p = chunking.pad_to_multiple(codes, chunk_reads,
+                                       fill=dna.INVALID_CODE)
+    lengths_p = chunking.pad_to_multiple(lengths, chunk_reads)
+    table = None
+    for lo in range(0, R, chunk_reads):
+        c = chunking.dslice(codes_p, lo, chunk_reads)
+        l = chunking.dslice(lengths_p, lo, chunk_reads)
+        part = trim_table(count_kmers(c, l, k))
+        table = part if table is None else trim_table(
+            merge_tables(table, part))
+    return table
+
+
+def merge_tables(a: KmerTable, b: KmerTable) -> KmerTable:
+    """Merge two counted tables (counts add). Capacity = sum of inputs."""
+    dev = a.kmers.device
+    kmers = torch.cat([a.kmers, b.kmers], dim=0)
+    weights = torch.cat([a.counts, b.counts])
+    valid = torch.cat([torch.arange(a.capacity, device=dev) < a.num,
+                       torch.arange(b.capacity, device=dev) < b.num])
+    uniq, counts, num = segments.count_sorted(kmers, valid, weights)
+    return KmerTable(uniq, counts.to(torch.int32), num)
+
+
+def lookup(table: KmerTable, queries: torch.Tensor):
+    """Find query k-mers (M, W) in the table.
+
+    Returns (idx (M,) into table rows, found (M,) bool).
+    """
+    idx = segments.searchsorted_rows(table.kmers, queries)
+    found = idx < table.num
+    return torch.where(found, idx, 0), found

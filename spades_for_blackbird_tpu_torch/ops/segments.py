@@ -1,0 +1,198 @@
+"""Sorted-multiset machinery: multi-word sort, run-length unique/count,
+compaction, vectorised binary search.
+
+PyTorch counterpart of ``spades_for_blackbird_tpu/ops/segments.py``.
+Variable-size results are returned as padded tensors plus a 0-dim count
+tensor, as in the JAX package.
+
+``torch.sort`` takes one key, where ``lax.sort`` takes several. A
+multi-word sort is therefore a series of stable argsort passes, least
+significant key first. Pairs of 32-bit words are fused into one int64
+key, ``((w_hi << 32) | w_lo) ^ (1 << 63)``, whose signed order is the
+unsigned order of the pair: that halves the number of passes.
+
+Out-of-range scatter indices, which JAX drops (``mode="drop"``), are sent
+to one extra slot past the end of the target and sliced off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .dna import WORD_MASK
+
+_SIGN = -(1 << 63)  # int64 with only the sign bit set
+
+
+def fused_cols(cols: list[torch.Tensor]) -> list[torch.Tensor]:
+    """W word columns (each (N,)) -> ceil(W/2) int64 keys whose signed
+    lexicographic order equals the words' lexicographic order (most
+    significant first). A lone last word keeps its own value, which is
+    non-negative."""
+    out = []
+    for w in range(0, len(cols) - 1, 2):
+        out.append(((cols[w] << 32) | cols[w + 1]) ^ _SIGN)
+    if len(cols) % 2:
+        out.append(cols[-1])
+    return out
+
+
+def fuse_words(keys: torch.Tensor) -> list[torch.Tensor]:
+    """``fused_cols`` for row-major words (N, W)."""
+    return fused_cols(list(keys.unbind(1)))
+
+
+def lexsort_perm(keys: list[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation sorting by ``keys`` (most significant first)."""
+    N = keys[0].shape[0]
+    perm = torch.arange(N, dtype=torch.int64, device=keys[0].device)
+    for key in reversed(keys):
+        order = torch.sort(key[perm], stable=True).indices
+        perm = perm[order]
+    return perm
+
+
+def sort_by_key_rows(keys: torch.Tensor, payloads: tuple = (),
+                     valid: torch.Tensor | None = None):
+    """Sort rows of ``keys`` (N, W) lexicographically over the word axis.
+
+    If ``valid`` is given, invalid rows sort after all valid rows. The
+    sort is stable. Payloads (each shape (N, ...)) are permuted alongside.
+    Returns (sorted_keys, sorted_payloads, sorted_valid).
+    """
+    sort_keys = fuse_words(keys)
+    if valid is not None:
+        sort_keys = [(~valid).to(torch.int64)] + sort_keys
+    perm = lexsort_perm(sort_keys)
+    sorted_valid = valid[perm] if valid is not None else None
+    return keys[perm], tuple(p[perm] for p in payloads), sorted_valid
+
+
+def rows_equal_prev(keys: torch.Tensor) -> torch.Tensor:
+    """(N, W) -> (N,) bool: row equals previous row (row 0 -> False)."""
+    eq = torch.all(keys[1:] == keys[:-1], dim=1)
+    return torch.cat([torch.zeros(1, dtype=torch.bool, device=keys.device),
+                      eq])
+
+
+def unique_counts(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor,
+                  weights: torch.Tensor | None = None):
+    """Run-length encode sorted rows.
+
+    Returns (uniq (N, W) with all-ones padding past ``num_unique``,
+    counts (N,), gid (N,) group id of each input row, num_unique 0-dim).
+    """
+    N, W = sorted_keys.shape
+    dev = sorted_keys.device
+    seg_start = (~rows_equal_prev(sorted_keys)) & sorted_valid
+    gid = torch.clamp(torch.cumsum(seg_start, 0) - 1, min=0)
+    num_unique = seg_start.sum()
+    scatter_gid = torch.where(sorted_valid, gid, N)
+    uniq = torch.full((N + 1, W), WORD_MASK, dtype=torch.int64, device=dev)
+    uniq[scatter_gid] = sorted_keys
+    if weights is None:
+        weights = torch.ones(N, dtype=torch.int32, device=dev)
+    counts = torch.zeros(N + 1, dtype=weights.dtype, device=dev)
+    counts.index_add_(0, scatter_gid, weights)
+    return uniq[:N], counts[:N], gid, num_unique
+
+
+def _sorted_fold(cols: list[torch.Tensor]):
+    """Sort column-major keys whose invalid rows are all-ones and
+    run-length encode them."""
+    perm = lexsort_perm(fused_cols(cols))
+    skeys = torch.stack([c[perm] for c in cols], dim=1)
+    svalid = ~torch.all(skeys == WORD_MASK, dim=1)
+    uniq, counts, _, num_unique = unique_counts(skeys, svalid, None)
+    return uniq, counts, num_unique
+
+
+def count_sorted(keys: torch.Tensor, valid: torch.Tensor,
+                 weights: torch.Tensor | None = None,
+                 sentinel_safe: bool = False):
+    """sort + unique_counts in one call. Returns (uniq, counts, num_unique).
+
+    sentinel_safe: caller guarantees no real key row is all-ones (true for
+    packed k-mers whenever k % 16 != 0 -- the pad bits are always zero).
+    Validity then folds into the keys (invalid -> all-ones) and no
+    validity key is sorted.
+    """
+    if sentinel_safe and weights is None:
+        skeys = torch.where(valid[:, None], keys, WORD_MASK)
+        return _sorted_fold(list(skeys.unbind(1)))
+    payloads = (weights,) if weights is not None else ()
+    skeys, spayloads, svalid = sort_by_key_rows(keys, payloads, valid)
+    w = spayloads[0] if weights is not None else None
+    uniq, counts, _, num_unique = unique_counts(skeys, svalid, w)
+    return uniq, counts, num_unique
+
+
+def count_sorted_cols(cols: list[torch.Tensor], valid: torch.Tensor):
+    """count_sorted for column-major keys (the extraction kernel's
+    layout): ``cols`` = W tensors of shape (N,). The caller guarantees
+    sentinel safety."""
+    scols = [torch.where(valid, c, WORD_MASK) for c in cols]
+    return _sorted_fold(scols)
+
+
+def drop_scatter(n: int, index: torch.Tensor, src: torch.Tensor,
+                 reduce: str = "sum", init=0) -> torch.Tensor:
+    """(n,) tensor filled with ``init``, with ``src`` reduced into it at
+    ``index`` ("sum", "amax" or "amin"). Index ``n`` is dropped, as JAX's
+    ``.at[index].add/max/min(src, mode="drop")`` drops it."""
+    out = torch.full((n + 1,), init, dtype=src.dtype, device=src.device)
+    if reduce == "sum":
+        out.index_add_(0, index, src)
+    else:
+        out.scatter_reduce_(0, index, src, reduce, include_self=True)
+    return out[:n]
+
+
+def compact(mask: torch.Tensor, *arrays: torch.Tensor):
+    """Stable-pack rows where ``mask`` is True to the front.
+
+    Returns (num_kept 0-dim, packed_arrays); slots past num_kept are zero.
+    """
+    N = mask.shape[0]
+    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, N)
+    num_kept = mask.sum()
+    outs = []
+    for a in arrays:
+        out = torch.zeros((N + 1,) + a.shape[1:], dtype=a.dtype,
+                          device=a.device)
+        out[dest] = a
+        outs.append(out[:N])
+    return num_kept, tuple(outs)
+
+
+def searchsorted_rows(haystack: torch.Tensor, needles: torch.Tensor
+                      ) -> torch.Tensor:
+    """Binary search rows of ``needles`` (M, W) in sorted ``haystack`` (N, W).
+
+    Returns (M,) int64 index of the first haystack row == needle, or N if
+    absent. Compares fused int64 word pairs (see ``fuse_words``).
+    """
+    N = haystack.shape[0]
+    M = needles.shape[0]
+    dev = needles.device
+    hay = torch.stack(fuse_words(haystack), dim=1)
+    ndl = torch.stack(fuse_words(needles), dim=1)
+    G = hay.shape[1]
+    lo = torch.zeros(M, dtype=torch.int64, device=dev)
+    hi = torch.full((M,), N, dtype=torch.int64, device=dev)
+    # the [lo, hi) gap starts at N and halves per iteration; it must
+    # reach 0, which takes ceil(log2(N+1)) <= N.bit_length() steps --
+    # (N-1).bit_length() is one short when N is a power of two
+    n_iters = max(1, N.bit_length())
+    for _ in range(n_iters):
+        mid = (lo + hi) // 2
+        mid_rows = hay[torch.clamp(mid, max=N - 1)]
+        lt = mid_rows[:, G - 1] < ndl[:, G - 1]
+        for g in range(G - 2, -1, -1):
+            lt = (mid_rows[:, g] < ndl[:, g]) | (
+                (mid_rows[:, g] == ndl[:, g]) & lt)
+        lo = torch.where(lt, mid + 1, lo)
+        hi = torch.where(lt, hi, mid)
+    found_rows = haystack[torch.clamp(lo, max=N - 1)]
+    found = torch.all(found_rows == needles, dim=1) & (lo < N)
+    return torch.where(found, lo, N)

@@ -1,0 +1,77 @@
+"""Tests of the PyTorch port that need a CUDA card: the hand-written
+k-mer extraction kernel against its plain PyTorch version. They skip
+without a card. This file imports no JAX, so on a machine with the card
+and without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
+from spades_for_blackbird_tpu_torch.ops import kmer, kmer_cuda  # noqa: E402
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _reads(seed, R, L):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (R, L), dtype=np.uint8)
+    codes[rng.random((R, L)) < 0.01] = 4
+    lengths = np.full(R, L, np.int32)
+    short = rng.random(R) < 0.1
+    lengths[short] = rng.integers(1, L, short.sum())
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 4
+    return codes, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k", [(100, 22), (100, 56), (150, 78),
+                                 (150, 128), (40, 5)])
+def test_kernel_matches_plain_on_card(card, L, k):
+    codes, lengths = _reads(L + k, 2048, L)
+    c = torch.from_numpy(codes).to(card)
+    ln = torch.from_numpy(lengths).to(card)
+    kernel = kmer_cuda.KmerExtractKernel()
+    got = kernel(c, ln, k, k % 16 != 0)
+    ref = kmer.extract_canonical_cols(c, ln, k, k % 16 != 0)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_count_kmers_card_equals_cpu(card):
+    codes, lengths = _reads(3, 4096, 100)
+    t = counter.count_kmers_chunked(torch.from_numpy(codes).to(card),
+                                    torch.from_numpy(lengths).to(card), 56,
+                                    chunk_reads=1024)
+    c = counter.count_kmers_chunked(torch.from_numpy(codes),
+                                    torch.from_numpy(lengths), 56,
+                                    chunk_reads=1024)
+    assert int(t.num) == int(c.num) and t.capacity == c.capacity
+    assert torch.equal(t.kmers.cpu(), c.kmers)
+    assert torch.equal(t.counts.cpu(), c.counts)
+
+
+@pytest.mark.cuda
+def test_wrapper_checks_its_inputs(card):
+    kernel = kmer_cuda.KmerExtractKernel()
+    codes = torch.zeros((4, 30), dtype=torch.uint8, device=card)
+    lengths = torch.full((4,), 30, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        kernel(codes.to(torch.int32), lengths, 21, True)
+    with pytest.raises(ValueError):
+        kernel(codes, lengths.to(torch.int64), 21, True)
+    with pytest.raises(ValueError):
+        kernel(codes, lengths, 31, True)
+    with pytest.raises(ValueError):
+        kernel(codes[:, ::2], lengths, 11, True)
