@@ -11,12 +11,17 @@ prints no result):
 
 1. the card's name and power limit (nvidia-smi); build of the CUDA
    k-mer extraction kernel from ``spades_for_blackbird_tpu_torch/csrc``;
-2. kernel vs its plain PyTorch version on the card: simulated reads at
-   the counting chunk's shape, L = 100 and 150, with N bases and short
-   reads, k+1 in {22, 34, 56, 78, 128}; words and validity must be
-   bit-equal; CUDA events time the bare kernel launch, the whole wrapper
-   (allocation and the widening of the words to int64 included) and the
-   plain version;
+2. kernel vs its plain PyTorch version on the card: simulated reads
+   with N bases and short reads, L = 100 and 150, k+1 in
+   {22, 34, 56, 78, 128} at nine fixed chunk shapes, the shape the
+   full-size run gives the kernel, and small ragged shapes (a last tile
+   that is not full, one read, reads of length 0, a misaligned view);
+   sort keys and validity must be bit-equal; CUDA events time the bare
+   kernel launch, the wrapper (the call the counter makes: allocation
+   and launch) and the plain version, beside the bound: the larger of
+   the bytes the kernel must move over the card's memory rate and its
+   integer operations over the card's instruction rate; ``count_kmers`` on
+   one chunk is timed too;
 3. ``assemble_single_k`` at k=21 on a 20 kb simulated genome on the card
    and on the CPU: identical canonical contigs, coverages within
    rtol 1e-4 (float32 sums run in another order on the card);
@@ -54,9 +59,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "spades_for_blackbird_tpu_torch"
 KERNEL_SOURCE = f"{PACKAGE}/csrc/kmer_extract.cu"
 TPU_KERNEL = "spades_for_blackbird_tpu/ops/kmer_pallas.py:31"
-SMOKE_KS = (22, 34, 56, 78, 128)  # (k+1)-mer sizes of the K ladders
+# (L, k+1, reads): the (k+1)-mer sizes of the K ladders at one counting
+# chunk each
+SMOKE_SHAPES = (
+    (100, 22, 1 << 20), (100, 34, 1 << 20), (100, 56, 1 << 20),
+    (100, 78, 1 << 21),
+    (150, 22, 1 << 19), (150, 34, 1 << 19), (150, 56, 1 << 19),
+    (150, 78, 1 << 19), (150, 128, 1 << 20))
+# (L, k, reads) that leave a ragged last tile, one read, one window a
+# read, an alignment unit of 16 reads, the longest row
+RAGGED_SHAPES = ((100, 56, 100_003), (100, 56, 1), (40, 5, 1), (40, 5, 333),
+                 (150, 128, 77), (33, 16, 50), (100, 100, 9), (4096, 127, 3))
 FULL_K = 55
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
+FULL_COVERAGE = 40.0
+FULL_READ_LEN = 100
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+# The data sheet names no integer rate. 32-bit integer instructions run
+# at most as fast as float32 FMAs outside the tensor cores (67 TFLOP/s,
+# two operations an FMA), so that rate bounds them from above.
+INT_OPS_PER_S = 67e12 / 2
 COV_RTOL = 1e-4
 PROFILE_TOP_KERNELS = 25
 PROFILE_TOP_HOST = 40
@@ -114,76 +136,160 @@ def cuda_ms(fn, reps: int) -> float:
 
 def phase_build() -> dict:
     from spades_for_blackbird_tpu_torch.ops import kmer_cuda
-    kernel = kmer_cuda.extract_canonical_cols
+    kernel = kmer_cuda.extract_sort_keys
     t0 = time.perf_counter()
     path = kernel.build()
     seconds = time.perf_counter() - t0
-    regs = [ln.strip() for ln in kernel.ptxas_log.splitlines()
-            if "registers" in ln]
     log(f"[build] {path} in {seconds:.2f} s (nvcc {kernel.build_seconds:.2f}"
-        f" s); ptxas: {regs[0] if regs else 'cached build'}")
-    return {"build_s": seconds}
+        f" s)")
+    usage = [ln.strip() for ln in kernel.ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    for ln in usage or ["cached build"]:
+        log(f"[build] ptxas: {ln}")
+    return {"build_s": seconds, "ptxas": usage}
+
+
+def noisy_reads(rng, codes, lengths):
+    """N bases, short reads (5%, some of length 0) and padding."""
+    L = codes.shape[1]
+    codes[rng.random(codes.shape) < 0.002] = 4
+    short = np.nonzero(rng.random(len(lengths)) < 0.05)[0]
+    lengths[short] = rng.integers(0, L, len(short))
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 4
+    return codes, lengths
+
+
+def kernel_bytes(R: int, L: int, k: int) -> int:
+    """What the kernel must move: every code and length read once, every
+    key (and, where k % 16 == 0, validity byte) written once."""
+    windows = R * (L - k + 1)
+    key_cols = ((k + 15) // 16 + 1) // 2
+    return R * L + 4 * R + (8 * key_cols + (k % 16 == 0)) * windows
+
+
+def kernel_ops(R: int, L: int, k: int) -> int:
+    """The least 32-bit integer operations the function needs: a shift a
+    word and strand, a compare and a select a word, a fuse a key, for
+    every window; two packing operations a base and strand."""
+    words = (k + 15) // 16
+    windows = R * (L - k + 1)
+    return windows * (4 * words + (words + 1) // 2) + 4 * R * L
+
+
+def compare_kernel(kernel, c, ln, k) -> float:
+    """Kernel vs plain version on the same tensors: the largest absolute
+    difference of the unfused words and validity (0.0: bit-equal)."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import dna, kmer, segments
+    keys, valid = kernel(c, ln, k)
+    ref_keys, ref_valid = kmer.extract_sort_keys(c, ln, k)
+    torch.cuda.synchronize()
+    if (valid is None) != (ref_valid is None):
+        return float("inf")
+    err = 0.0
+    if valid is not None and not torch.equal(valid, ref_valid):
+        err = 1.0
+    if not torch.equal(keys, ref_keys):
+        W = dna.words_per_kmer(k)
+        for g in range(keys.shape[0]):  # one key column at a time
+            diff = segments.unfuse_keys([keys[g]], min(2, W - 2 * g)) - \
+                segments.unfuse_keys([ref_keys[g]], min(2, W - 2 * g))
+            err = max(err, float(diff.abs().max()))
+    return err
 
 
 def phase_kernel_vs_plain(device) -> dict:
     """Bit-equality and timing of the kernel against the plain version."""
     import torch
     from spades_for_blackbird_tpu_torch.kmers import counter
-    from spades_for_blackbird_tpu_torch.ops import dna, kmer, kmer_cuda
+    from spades_for_blackbird_tpu_torch.ops import kmer, kmer_cuda
 
-    kernel = kmer_cuda.extract_canonical_cols
+    kernel = kmer_cuda.extract_sort_keys
     rng = np.random.default_rng(11)
+
+    ragged = []
+    for L, k, R in RAGGED_SHAPES:
+        codes, lengths = noisy_reads(
+            rng, rng.integers(0, 4, (R + 1, L), dtype=np.uint8),
+            np.full(R + 1, L, np.int32))
+        c_all = torch.from_numpy(codes).to(device)
+        ln_all = torch.from_numpy(lengths).to(device)
+        # rows 0..R-1 start on the storage's boundary; rows 1..R start L
+        # bytes in, which is no 16-byte boundary for these L but 4096
+        for name, lo in (("aligned", 0), ("offset view", 1)):
+            err = compare_kernel(kernel, c_all[lo:lo + R],
+                                 ln_all[lo:lo + R].contiguous(), k)
+            ragged.append({"L": L, "k": k, "R": R, "view": name,
+                           "max_abs_err": err})
+            log(f"[kernel] ragged L={L} k={k} R={R} ({name}): "
+                f"max_abs_err={err}")
+            if err != 0.0:
+                raise AssertionError(
+                    f"kernel != plain at L={L} k={k} R={R} ({name})")
+
+    # the shape the full-size run hands the kernel: all its reads, or
+    # the counting chunk where the card's free memory allows fewer
+    full_reads = 2 * int(FULL_COVERAGE * FULL_GENOME / (2 * FULL_READ_LEN))
+    main_shape = (FULL_READ_LEN, FULL_K + 1,
+                  min(full_reads, counter.chunk_reads_for(
+                      FULL_READ_LEN, FULL_K + 1, device)))
     rows = []
     for L in (100, 150):
-        chunk = max(counter.chunk_reads_for(L, k, device)
-                    for k in SMOKE_KS if k <= L)
+        shapes = [sh for sh in dict.fromkeys(SMOKE_SHAPES + (main_shape,))
+                  if sh[0] == L]
+        most = max(R for _, _, R in shapes)
         _, codes, lengths = simulate_reads(
-            chunk * L // 40 + L, 40.0, L, seed=21 + L)
-        codes, lengths = codes[:chunk].copy(), lengths[:chunk].copy()
-        codes[rng.random(codes.shape) < 0.002] = 4  # N bases
-        short = np.nonzero(rng.random(len(lengths)) < 0.05)[0]
-        lengths[short] = rng.integers(1, L, len(short))
-        codes[np.arange(L)[None, :] >= lengths[:, None]] = 4  # padding
+            most * L // 40 + L, 40.0, L, seed=21 + L)
+        codes, lengths = noisy_reads(rng, codes[:most].copy(),
+                                     lengths[:most].copy())
         codes_d = torch.from_numpy(codes).to(device)
         lengths_d = torch.from_numpy(lengths).to(device)
-        for k in SMOKE_KS:
-            if k > L:
-                continue
-            R = counter.chunk_reads_for(L, k, device)
+        for _, k, R in shapes:
             c, ln = codes_d[:R], lengths_d[:R]
-            ss = k % 16 != 0
-            words, valid = kernel(c, ln, k, ss)
-            ref_words, ref_valid = kmer.extract_canonical_cols(c, ln, k, ss)
-            torch.cuda.synchronize()
-            equal = torch.equal(words, ref_words) and \
-                torch.equal(valid, ref_valid)
-            err = float((words - ref_words).abs().max()) if words.numel() \
-                else 0.0
-            del words, valid, ref_words, ref_valid
-            P, W = L - k + 1, dna.words_per_kmer(k)
-            out = torch.empty((W, R * P), dtype=torch.int32, device=device)
-            flags = torch.empty(R * P, dtype=torch.uint8, device=device)
-            ms = cuda_ms(lambda: kernel.launch(c, ln, k, ss, out, flags), 5)
-            del out, flags
-            wrapper_ms = cuda_ms(lambda: kernel(c, ln, k, ss), 5)
-            plain_ms = cuda_ms(
-                lambda: kmer.extract_canonical_cols(c, ln, k, ss), 3)
-            # the launch's own traffic: codes and lengths in, W words and
-            # one validity byte a window out
-            kernel_bytes = R * L + 4 * R + (4 * W + 1) * R * P
-            row = {"L": L, "k": k, "R": R, "windows": R * P,
-                   "bit_equal": equal, "max_abs_err": err, "ms": ms,
+            err = compare_kernel(kernel, c, ln, k)
+            n = R * (L - k + 1)
+            keys = torch.empty((((k + 15) // 16 + 1) // 2, n),
+                               dtype=torch.int64, device=device)
+            flags = torch.empty(n, dtype=torch.uint8, device=device) \
+                if k % 16 == 0 else None
+            ms = cuda_ms(lambda: kernel.launch(c, ln, k, keys, flags), 10)
+            del keys, flags
+            wrapper_ms = cuda_ms(lambda: kernel(c, ln, k), 10)
+            plain_ms = cuda_ms(lambda: kmer.extract_sort_keys(c, ln, k), 3)
+            moved = kernel_bytes(R, L, k)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = kernel_ops(R, L, k) / INT_OPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            row = {"L": L, "k": k, "R": R, "windows": n,
+                   "bit_equal": err == 0.0, "max_abs_err": err, "ms": ms,
                    "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                   "kernel_bytes": kernel_bytes,
-                   "kernel_GBps": kernel_bytes / ms / 1e6}
+                   "kernel_bytes": moved, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", "ops_bound_ms": ops_ms,
+                   "bound_share": bound_ms / ms,
+                   "kernel_GBps": moved / ms / 1e6,
+                   "main_path": (L, k, R) == main_shape}
             rows.append(row)
-            log(f"[kernel] L={L} k={k} R={R} bit_equal={equal} kernel "
-                f"{ms:.3f} ms ({row['kernel_GBps']:.0f} GB/s) wrapper "
-                f"{wrapper_ms:.3f} ms plain {plain_ms:.3f} ms")
-            if not equal:
+            log(f"[kernel] L={L} k={k} R={R} max_abs_err={err} kernel "
+                f"{ms:.3f} ms ({row['kernel_GBps']:.0f} GB/s; bound "
+                f"{bound_ms:.3f} ms, {row['bound_share']:.0%} of it) "
+                f"wrapper {wrapper_ms:.3f} ms plain {plain_ms:.3f} ms")
+            if err != 0.0:
                 raise AssertionError(f"kernel != plain at L={L} k={k}")
             torch.cuda.empty_cache()
-    return {"rows": rows}
+            # the consumer: extraction, sort and run-length encoding of
+            # the chunk, and the bytes a window it holds at most
+            torch.cuda.reset_peak_memory_stats(device)
+            before = torch.cuda.memory_allocated(device)
+            row["count_kmers_ms"] = cuda_ms(
+                lambda: counter.count_kmers(c, ln, k), 3)
+            peak = torch.cuda.max_memory_allocated(device) - before
+            row["count_peak_bytes_per_window"] = peak / n
+            log(f"[kernel] count_kmers L={L} k={k} R={R}: "
+                f"{row['count_kmers_ms']:.3f} ms, peak {peak / n:.1f} bytes "
+                f"a window")
+            torch.cuda.empty_cache()
+    return {"rows": rows, "ragged": ragged}
 
 
 def canonical_contigs(contigs):
@@ -221,11 +327,12 @@ def phase_full(device) -> tuple[dict, tuple]:
     from spades_for_blackbird_tpu_torch.utils import assess, timetrace
 
     t0 = time.perf_counter()
-    genome, codes, lengths = simulate_reads(FULL_GENOME, 40.0, 100, seed=7)
+    genome, codes, lengths = simulate_reads(FULL_GENOME, FULL_COVERAGE,
+                                            FULL_READ_LEN, seed=7)
     sim_s = time.perf_counter() - t0
     log(f"[full] simulated {FULL_GENOME} bp, {codes.shape[0]} reads in "
         f"{sim_s:.1f} s")
-    kernel = kmer_cuda.extract_canonical_cols
+    kernel = kmer_cuda.extract_sort_keys
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     timetrace.enable()
@@ -380,17 +487,24 @@ def main(argv=None) -> int:
                 json.dump(record, f, indent=1)
 
     rows = record["kernel_vs_plain"]["rows"]
-    main_row = next(r for r in rows if r["L"] == 100 and r["k"] == FULL_K + 1)
+    main_row = next(r for r in rows if r["main_path"])
     print(json.dumps({"kernels": [{
         "name": "kmer_extract",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": record["full"]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(
+            r["max_abs_err"]
+            for r in rows + record["kernel_vs_plain"]["ragged"]),
         "ms": main_row["ms"],
         "wrapper_ms": main_row["wrapper_ms"],
         "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+        "shape": {"R": main_row["R"], "L": main_row["L"],
+                  "k": main_row["k"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

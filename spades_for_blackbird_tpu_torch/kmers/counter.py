@@ -36,20 +36,17 @@ class KmerTable(NamedTuple):
 
 def count_kmers(codes: torch.Tensor, lengths: torch.Tensor, k: int
                 ) -> KmerTable:
-    """Count canonical k-mers of a read batch (one chunk)."""
-    # all-ones is unreachable for real k-mers when pad bits exist
-    sentinel_safe = (k % dna.BASES_PER_WORD) != 0
-    words, valid = kmer_cuda.extract_canonical_cols(
-        codes.contiguous(), lengths.to(torch.int32).contiguous(), k,
-        sentinel_safe)
-    if sentinel_safe:
-        # invalid windows already hold the all-ones sentinel: the sort
-        # operands are the kernel's columns
-        uniq, counts, num = segments.count_sorted_cols(list(words.unbind(0)),
-                                                       valid)
-    else:
-        uniq, counts, num = segments.count_sorted(words.t(), valid)
-    return KmerTable(uniq, counts.to(torch.int32), num)
+    """Count canonical k-mers of a read batch (one chunk).
+
+    The extraction writes the sort's keys (fused word pairs, invalid
+    windows as the sentinel where k % 16 != 0), so they go to the sort
+    as they are; only the counted rows are turned back into words.
+    """
+    keys, valid = kmer_cuda.extract_sort_keys(
+        codes.contiguous(), lengths.to(torch.int32).contiguous(), k)
+    uniq, counts, num = segments.count_sorted_keys(
+        list(keys.unbind(0)), dna.words_per_kmer(k), valid)
+    return KmerTable(uniq, counts, num)
 
 
 def filter_min_count(table: KmerTable, min_count: int) -> KmerTable:
@@ -65,24 +62,34 @@ def filter_min_count(table: KmerTable, min_count: int) -> KmerTable:
 
 def trim_table(t: KmerTable) -> KmerTable:
     """Cut capacity to the power of two at or above ``num`` (never
-    above the current capacity); rows past ``num`` are padding."""
+    above the current capacity); rows past ``num`` are padding. A cut
+    table is a copy, so that the longer one's memory is released: a
+    counted chunk has one row a window before it is trimmed."""
     cap = 1 << max(1, int(t.num) - 1).bit_length()
-    cap = min(cap, t.capacity)
-    return KmerTable(t.kmers[:cap], t.counts[:cap], t.num)
+    if cap >= t.capacity:
+        return t
+    return KmerTable(t.kmers[:cap].clone(), t.counts[:cap].clone(), t.num)
 
 
 def chunk_reads_for(read_len: int, k: int, device: torch.device) -> int:
     """Reads per counting chunk.
 
     On the card the chunk is sized from the free device memory: a
-    quarter of it over the bytes a read's windows take through
-    extraction, widening and the sort passes (about 48*W + 64 bytes a
-    window), rounded down to a power of two. On the CPU it is
+    quarter of it over the bytes a read's windows hold at the peak of
+    ``count_kmers``, rounded down to a power of two. That peak is the
+    end of ``segments.count_sorted_keys``, where the table is unfused:
+    the kernel's G = ceil(W/2) int64 keys, the G run-length encoded
+    keys, the W int64 words of the table, and the counts, the validity
+    and one key's temporaries beside them, 16*G + 8*W + 32 bytes a
+    window (``chip_smoke.py`` reads 60 to 157 bytes a window at W = 2 to
+    8 on an H100, each within 4 bytes under this). On the CPU it is
     ``CPU_CHUNK_READS``.
     """
     if device.type != "cuda":
         return CPU_CHUNK_READS
-    per_read = max(read_len - k + 1, 1) * (48 * dna.words_per_kmer(k) + 64)
+    words = dna.words_per_kmer(k)
+    per_read = max(read_len - k + 1, 1) * (16 * ((words + 1) // 2)
+                                           + 8 * words + 32)
     free, _ = torch.cuda.mem_get_info(device)
     n = max(1 << 12, min(1 << 24, free // 4 // per_read))
     return 1 << (n.bit_length() - 1)

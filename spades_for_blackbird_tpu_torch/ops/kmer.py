@@ -2,15 +2,15 @@
 
 PyTorch counterpart of ``spades_for_blackbird_tpu/ops/kmer.py``. This is
 the plain version of the CUDA extraction kernel (``ops/kmer_cuda.py``):
-the kernel's wrapper runs ``extract_canonical_cols`` for tensors on the
-CPU, and ``chip_smoke.py`` holds the kernel against it on the card.
+the kernel's wrapper runs ``extract_sort_keys`` for tensors on the CPU,
+and ``chip_smoke.py`` holds the kernel against it on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import dna
+from . import dna, segments
 
 
 def sliding_words(codes: torch.Tensor) -> torch.Tensor:
@@ -80,20 +80,22 @@ def extract_canonical_kmers(codes: torch.Tensor, lengths: torch.Tensor,
     return canon, valid, is_fwd
 
 
-def extract_canonical_cols(codes: torch.Tensor, lengths: torch.Tensor,
-                           k: int, sentinel_safe: bool
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Canonical k-mers in the counting engine's column-major layout.
+def extract_sort_keys(codes: torch.Tensor, lengths: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Canonical k-mers of a read batch as the counting sort's keys.
 
-    Returns (words (W, R*P) int64, valid (R*P,) bool); window (r, p) is
-    column r*P + p. With ``sentinel_safe`` every word of an invalid
-    window is the all-ones sentinel; otherwise invalid windows hold the
-    canonical form of their bases (N read as A).
+    Returns (keys (G, R*P) int64, valid): ``segments.fused_cols`` of the
+    canonical words, G = ceil(W/2) key columns, window (r, p) in column
+    r*P + p. When k % 16 != 0 no real k-mer is all-ones: invalid windows
+    then hold the fused all-ones sentinel and ``valid`` is None.
+    Otherwise invalid windows hold the canonical form of their bases (N
+    read as A) and ``valid`` is the (R*P,) bool column.
     """
     canon, valid, _ = extract_canonical_kmers(codes, lengths, k)
-    W = canon.shape[-1]
-    words = canon.reshape(-1, W).t().contiguous()
+    words = canon.reshape(-1, canon.shape[-1])
     valid = valid.reshape(-1)
+    sentinel_safe = k % dna.BASES_PER_WORD != 0
     if sentinel_safe:
-        words = torch.where(valid[None, :], words, dna.WORD_MASK)
-    return words, valid
+        words = torch.where(valid[:, None], words, dna.WORD_MASK)
+    keys = torch.stack(segments.fuse_words(words))
+    return keys, (None if sentinel_safe else valid)

@@ -1,13 +1,23 @@
 """Wrapper of the hand-written CUDA k-mer extraction kernel.
 
 The kernel (``csrc/kmer_extract.cu``) replaces the TPU kernel
-``spades_for_blackbird_tpu/ops/kmer_pallas.py::_kernel``: fused k-mer
-extraction and canonicalisation, written column-major for the counting
-sort. Its note on what bounds it sits in the source.
+``spades_for_blackbird_tpu/ops/kmer_pallas.py::_kernel``: canonical
+k-mers of every window of a read batch, written as the keys the counting
+sort sorts (``segments.fused_cols`` of the canonical words, invalid
+windows as the fused all-ones sentinel where k % 16 != 0).
+
+Design, in short (the source's note has the whole of it): a block packs
+each read of its tile once into 2-bit words in shared memory, both
+strands and one "bad" bit a base, and every window is then a few funnel
+shifts of those words; the codes arrive by bulk asynchronous copies,
+two stages deep, in persistent blocks; neighbouring threads store
+neighbouring 8-byte keys. The bound is device memory: 1 byte a base and
+4 bytes a read in, 8*ceil(W/2) bytes a window out (864 MB, 0.26 ms at
+3.35 TB/s, at R = 1,048,576, L = 100, k = 56).
 
 The wrapper dispatches on the device of its input. A CPU tensor goes to
-the plain PyTorch version, ``ops/kmer.py::extract_canonical_cols``; a
-CUDA tensor launches the kernel, which is built with ``nvcc`` from the
+the plain PyTorch version, ``ops/kmer.py::extract_sort_keys``; a CUDA
+tensor launches the kernel, which is built with ``nvcc`` from the
 package's own source at first use into the package's ``build/``
 directory, and loaded through ``ctypes``. There is no fallback from a
 CUDA tensor: a missing ``nvcc``, a failed build or a failed launch
@@ -26,7 +36,7 @@ import time
 import torch
 
 from . import dna
-from .kmer import extract_canonical_cols as plain_extract_canonical_cols
+from .kmer import extract_sort_keys as plain_extract_sort_keys
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "kmer_extract.cu")
@@ -34,7 +44,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_K = 8 * dna.BASES_PER_WORD  # 128: the k=127 rung's (k+1)-mers
-MAX_L = 49152  # one read row must fit the kernel's shared-memory tile
+MAX_L = 4096  # 16 reads of a tile, staged twice and packed, fit a block
 
 
 def find_nvcc() -> str:
@@ -55,9 +65,10 @@ def find_nvcc() -> str:
 
 
 class KmerExtractKernel:
-    """Callable wrapper: ``(codes, lengths, k, sentinel_safe) ->
-    (words (W, R*P) int64, valid (R*P,) bool)``, the contract of
-    ``ops/kmer.py::extract_canonical_cols``.
+    """Callable wrapper: ``(codes, lengths, k) -> (keys (G, R*P) int64,
+    valid)``, the contract of ``ops/kmer.py::extract_sort_keys``:
+    ``valid`` is None when k % 16 != 0 and the (R*P,) bool column
+    otherwise.
 
     ``launches`` counts kernel launches, in ``launch`` (CPU calls do not
     count).
@@ -101,18 +112,16 @@ class KmerExtractKernel:
             lib.sfb_kmer_extract.restype = ctypes.c_int
             lib.sfb_kmer_extract.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
             lib.sfb_error_string.restype = ctypes.c_char_p
             lib.sfb_error_string.argtypes = [ctypes.c_int]
             self._lib = lib
         return self._lib
 
-    def __call__(self, codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                 sentinel_safe: bool):
+    def __call__(self, codes: torch.Tensor, lengths: torch.Tensor, k: int):
         if codes.device.type == "cpu":
-            return plain_extract_canonical_cols(codes, lengths, k,
-                                                sentinel_safe)
+            return plain_extract_sort_keys(codes, lengths, k)
         if codes.device.type != "cuda":
             raise ValueError(f"unsupported device {codes.device}")
         if codes.dtype != torch.uint8 or codes.dim() != 2:
@@ -129,35 +138,35 @@ class KmerExtractKernel:
         if L > MAX_L or R * L >= 2 ** 31:
             raise ValueError(f"read batch ({R}, {L}) exceeds the kernel's "
                              f"limits (L <= {MAX_L}, R*L < 2**31)")
-        P = L - k + 1
-        W = dna.words_per_kmer(k)
-        out = torch.empty((W, R * P), dtype=torch.int32, device=codes.device)
-        valid = torch.empty(R * P, dtype=torch.uint8, device=codes.device)
+        n = R * (L - k + 1)
+        key_cols = (dna.words_per_kmer(k) + 1) // 2
+        keys = torch.empty((key_cols, n), dtype=torch.int64,
+                           device=codes.device)
+        valid = None
+        if k % dna.BASES_PER_WORD == 0:  # all-ones is a real k-mer
+            valid = torch.empty(n, dtype=torch.uint8, device=codes.device)
         if R:
-            self.launch(codes, lengths, k, sentinel_safe, out, valid)
-        words = out.to(torch.int64)
-        words &= dna.WORD_MASK
-        return words, valid.view(torch.bool)
+            self.launch(codes, lengths, k, keys, valid)
+        return keys, (None if valid is None else valid.view(torch.bool))
 
     def launch(self, codes: torch.Tensor, lengths: torch.Tensor, k: int,
-               sentinel_safe: bool, out: torch.Tensor,
-               valid: torch.Tensor) -> None:
-        """The bare launch on the current stream: raw 32-bit words into
-        ``out`` ((W, R*P) int32) and validity into ``valid`` ((R*P,)
-        uint8). ``__call__`` checks the inputs and allocates the outputs
-        before it comes here."""
+               keys: torch.Tensor, valid: torch.Tensor | None) -> None:
+        """The bare launch on the current stream: the sort keys into
+        ``keys`` ((G, R*P) int64) and, where k % 16 == 0, validity into
+        ``valid`` ((R*P,) uint8; None otherwise). ``__call__`` checks the
+        inputs and allocates the outputs before it comes here."""
         R, L = codes.shape
         lib = self._load()
         with torch.cuda.device(codes.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.sfb_kmer_extract(
                 codes.data_ptr(), lengths.data_ptr(), R, L, k,
-                int(bool(sentinel_safe)), out.data_ptr(), valid.data_ptr(),
-                stream)
+                keys.data_ptr(),
+                None if valid is None else valid.data_ptr(), stream)
         if err:
             raise RuntimeError("kmer_extract launch failed: "
                                + lib.sfb_error_string(err).decode())
         self.launches += 1
 
 
-extract_canonical_cols = KmerExtractKernel()
+extract_sort_keys = KmerExtractKernel()

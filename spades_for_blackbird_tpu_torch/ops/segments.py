@@ -42,11 +42,32 @@ def fuse_words(keys: torch.Tensor) -> list[torch.Tensor]:
     return fused_cols(list(keys.unbind(1)))
 
 
+def unfuse_keys(keys: list[torch.Tensor], n_words: int) -> torch.Tensor:
+    """Inverse of ``fused_cols``: ceil(W/2) int64 keys (each (N,)) ->
+    (N, W) words in [0, 2^32). The words are written column by column
+    into the result, so no second copy of the table is held."""
+    out = torch.empty((keys[0].shape[0], n_words), dtype=torch.int64,
+                      device=keys[0].device)
+    for g, key in enumerate(keys):
+        if 2 * g + 1 < n_words:
+            pair = key ^ _SIGN
+            out[:, 2 * g] = (pair >> 32) & WORD_MASK
+            out[:, 2 * g + 1] = pair & WORD_MASK
+        else:
+            out[:, 2 * g] = key
+    return out
+
+
+def fused_sentinels(n_words: int) -> list[int]:
+    """The ``fused_cols`` keys of an all-ones row of ``n_words`` words."""
+    pairs = [(1 << 63) - 1] * (n_words // 2)
+    return pairs + [WORD_MASK] if n_words % 2 else pairs
+
+
 def lexsort_perm(keys: list[torch.Tensor]) -> torch.Tensor:
     """Stable permutation sorting by ``keys`` (most significant first)."""
-    N = keys[0].shape[0]
-    perm = torch.arange(N, dtype=torch.int64, device=keys[0].device)
-    for key in reversed(keys):
+    perm = torch.sort(keys[-1], stable=True).indices
+    for key in reversed(keys[:-1]):
         order = torch.sort(key[perm], stable=True).indices
         perm = perm[order]
     return perm
@@ -97,14 +118,63 @@ def unique_counts(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor,
     return uniq[:N], counts[:N], gid, num_unique
 
 
-def _sorted_fold(cols: list[torch.Tensor]):
-    """Sort column-major keys whose invalid rows are all-ones and
-    run-length encode them."""
-    perm = lexsort_perm(fused_cols(cols))
-    skeys = torch.stack([c[perm] for c in cols], dim=1)
-    svalid = ~torch.all(skeys == WORD_MASK, dim=1)
-    uniq, counts, _, num_unique = unique_counts(skeys, svalid, None)
-    return uniq, counts, num_unique
+def _sort_keys(keys: list[torch.Tensor], valid: torch.Tensor | None,
+               sentinels: list[int]):
+    """Fused keys sorted (invalid rows last) and their validity."""
+    if valid is None:
+        perm = lexsort_perm(keys)
+    else:
+        perm = lexsort_perm([(~valid).to(torch.int64)] + list(keys))
+    skeys = [c[perm] for c in keys]
+    if valid is not None:
+        return skeys, valid[perm]
+    is_sentinel = skeys[0] == sentinels[0]
+    for c, sent in zip(skeys[1:], sentinels[1:]):
+        is_sentinel &= c == sent
+    return skeys, ~is_sentinel
+
+
+def _encode_runs(skeys: list[torch.Tensor], svalid: torch.Tensor,
+                 sentinels: list[int]):
+    """Run-length encode sorted fused keys: (unique keys padded with the
+    sentinel, counts (N,) int32, number of runs)."""
+    N = skeys[0].shape[0]
+    dev = skeys[0].device
+    differs = skeys[0][1:] != skeys[0][:-1]
+    for c in skeys[1:]:
+        differs |= c[1:] != c[:-1]
+    seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           differs]) & svalid
+    scatter_gid = torch.where(svalid, torch.cumsum(seg_start, 0) - 1, N)
+    uniq = []
+    for c, sent in zip(skeys, sentinels):
+        col = torch.full((N + 1,), sent, dtype=torch.int64, device=dev)
+        col[scatter_gid] = c
+        uniq.append(col[:N])
+    counts = torch.zeros(N + 1, dtype=torch.int32, device=dev)
+    counts.index_add_(0, scatter_gid,
+                      torch.ones(N, dtype=torch.int32, device=dev))
+    return uniq, counts[:N], seg_start.sum()
+
+
+def count_sorted_keys(keys: list[torch.Tensor], n_words: int,
+                      valid: torch.Tensor | None = None):
+    """Sort and run-length encode rows given as their ``fused_cols`` keys
+    (the extraction kernel's layout: ceil(W/2) tensors of shape (N,)).
+
+    The keys are sorted as they are. With ``valid`` None the invalid
+    rows are those that hold the fused all-ones sentinel (the caller
+    guarantees that no real row does); otherwise ``valid`` sorts as the
+    leading key. Only the run-length encoded rows are unfused, after the
+    sorted keys and the indices have been let go: the table is the peak
+    of a counting chunk's memory. Returns (uniq (N, W) words with
+    all-ones padding, counts (N,) int32, num_unique 0-dim), as
+    ``count_sorted`` does.
+    """
+    sentinels = fused_sentinels(n_words)
+    uniq, counts, num_unique = _encode_runs(
+        *_sort_keys(keys, valid, sentinels), sentinels)
+    return unfuse_keys(uniq, n_words), counts, num_unique
 
 
 def count_sorted(keys: torch.Tensor, valid: torch.Tensor,
@@ -119,20 +189,12 @@ def count_sorted(keys: torch.Tensor, valid: torch.Tensor,
     """
     if sentinel_safe and weights is None:
         skeys = torch.where(valid[:, None], keys, WORD_MASK)
-        return _sorted_fold(list(skeys.unbind(1)))
+        return count_sorted_keys(fuse_words(skeys), keys.shape[1])
     payloads = (weights,) if weights is not None else ()
     skeys, spayloads, svalid = sort_by_key_rows(keys, payloads, valid)
     w = spayloads[0] if weights is not None else None
     uniq, counts, _, num_unique = unique_counts(skeys, svalid, w)
     return uniq, counts, num_unique
-
-
-def count_sorted_cols(cols: list[torch.Tensor], valid: torch.Tensor):
-    """count_sorted for column-major keys (the extraction kernel's
-    layout): ``cols`` = W tensors of shape (N,). The caller guarantees
-    sentinel safety."""
-    scols = [torch.where(valid, c, WORD_MASK) for c in cols]
-    return _sorted_fold(scols)
 
 
 def drop_scatter(n: int, index: torch.Tensor, src: torch.Tensor,

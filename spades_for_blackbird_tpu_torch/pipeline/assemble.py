@@ -72,8 +72,10 @@ def assemble_single_k(codes, lengths, k: int,
       min_contig_length: drop contigs shorter than this (default 2k).
       min_kmer_count: drop (k+1)-mers seen fewer times; "auto" takes the
         coverage model's error bound.
-      device: where the assembly runs; by default the device of
-        ``codes`` when it is a tensor, else the CPU.
+      device: where the assembly runs. By default the card: the
+        device of ``codes`` when that is a tensor on a card, else
+        ``cuda``; without a card the call raises. The CPU is taken
+        only on request, ``device="cpu"``.
 
     ``extra_sequences``, ``restricted_sequences``, ``uneven_depth=True``
     and ``phase_dir`` are not ported yet and raise NotImplementedError.
@@ -90,8 +92,13 @@ def assemble_single_k(codes, lengths, k: int,
         raise ValueError(f"k must be odd (reference enforces this, "
                          f"projects/spades/main.cpp:101), got {k}")
     if device is None:
-        device = codes.device if isinstance(codes, torch.Tensor) else "cpu"
+        on_card = isinstance(codes, torch.Tensor) and codes.is_cuda
+        device = codes.device if on_card else "cuda"
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "assemble_single_k runs on a CUDA card by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU")
     codes = _to_device(codes, torch.uint8, device)
     lengths = _to_device(lengths, torch.int32, device)
     read_length = int(codes.shape[1])

@@ -73,7 +73,7 @@ def test_contigs_fasta_and_min_length(tmp_path):
     _, codes, lengths = _genome_reads(seed=5, size=3000)
     res = assemble.assemble_single_k(torch.from_numpy(codes),
                                      torch.from_numpy(lengths), 21,
-                                     min_contig_length=200)
+                                     min_contig_length=200, device="cpu")
     assert res.contigs and all(len(s) >= 200 for s, _ in res.contigs)
     path = tmp_path / "contigs.fasta"
     fasta.write_contigs_fasta(str(path), res.contigs)
@@ -95,12 +95,27 @@ def test_contigs_fasta_and_min_length(tmp_path):
 def test_unported_options_raise(option):
     codes, lengths = dna.encode_reads(["ACGT" * 15])
     with pytest.raises(NotImplementedError):
-        assemble.assemble_single_k(codes, lengths, 21, **option)
+        assemble.assemble_single_k(codes, lengths, 21, device="cpu",
+                                   **option)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_default_device_is_the_card(as_tensor):
+    """Without ``device`` the assembly runs on the card, whatever holds
+    the reads; where there is none it raises and does not take the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("shows the raise on a machine without a card")
+    codes, lengths = dna.encode_reads(["ACGT" * 15])
+    if as_tensor:
+        codes, lengths = torch.from_numpy(codes), torch.from_numpy(lengths)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        assemble.assemble_single_k(codes, lengths, 21)
 
 
 def test_interop_graph_round_trip():
     _, codes, lengths = _genome_reads(seed=8, size=2000)
-    g = assemble.assemble_single_k(codes, lengths, 21).graph
+    g = assemble.assemble_single_k(codes, lengths, 21, device="cpu").graph
     arrays = interop.graph_to_numpy(g)
     g2 = interop.graph_from_numpy(arrays, g.k)
     back = interop.graph_to_numpy(g2)

@@ -18,7 +18,8 @@ from spades_for_blackbird_tpu.kmers import coverage_model as jcov  # noqa: E402
 from spades_for_blackbird_tpu_torch import interop  # noqa: E402
 from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
 from spades_for_blackbird_tpu_torch.kmers import coverage_model  # noqa: E402
-from spades_for_blackbird_tpu_torch.ops import dna  # noqa: E402
+from spades_for_blackbird_tpu_torch.ops import (  # noqa: E402
+    dna, kmer, segments)
 from spades_for_blackbird_tpu_torch.utils import simulate  # noqa: E402
 
 COUNT_KS = [22, 34, 56, 78, 128]  # (k+1)-mer sizes of the K ladders
@@ -56,6 +57,33 @@ def test_count_kmers_matches_jax(k):
     t = counter.count_kmers(torch.from_numpy(codes),
                             torch.from_numpy(lengths), k)
     jt = jcounter.count_kmers(jnp.asarray(codes), jnp.asarray(lengths), k)
+    assert_tables_equal(t, jt)
+
+
+@pytest.mark.parametrize("k", [56, 128])
+def test_count_kmers_sorts_the_extraction_keys_as_they_are(k, monkeypatch):
+    """Nothing stands between the extraction and the sort: the counter
+    hands ``count_sorted_keys`` the very columns ``extract_sort_keys``
+    wrote, with the validity column only where k % 16 == 0."""
+    codes, lengths = sim_reads(k + 5, genome_len=1000, n_pairs=40)
+    codes, lengths = torch.from_numpy(codes), torch.from_numpy(lengths)
+    seen = {}
+    real = segments.count_sorted_keys
+
+    def spy(keys, n_words, valid=None):
+        seen["keys"], seen["n_words"], seen["valid"] = keys, n_words, valid
+        return real(keys, n_words, valid)
+
+    monkeypatch.setattr(segments, "count_sorted_keys", spy)
+    t = counter.count_kmers(codes, lengths, k)
+    ref_keys, ref_valid = kmer.extract_sort_keys(codes, lengths, k)
+    assert seen["n_words"] == dna.words_per_kmer(k)
+    assert torch.equal(torch.stack(list(seen["keys"])), ref_keys)
+    assert (seen["valid"] is None) == (k % 16 != 0)
+    if ref_valid is not None:
+        assert torch.equal(seen["valid"], ref_valid)
+    jt = jcounter.count_kmers(jnp.asarray(codes.numpy()),
+                              jnp.asarray(lengths.numpy()), k)
     assert_tables_equal(t, jt)
 
 

@@ -33,19 +33,56 @@ def _reads(seed, R, L):
     return codes, lengths
 
 
+def _assert_kernel_equals_plain(card, codes, lengths, k):
+    c = torch.from_numpy(codes).to(card)
+    ln = torch.from_numpy(lengths).to(card)
+    kernel = kmer_cuda.KmerExtractKernel()
+    keys, valid = kernel(c, ln, k)
+    ref_keys, ref_valid = kmer.extract_sort_keys(c, ln, k)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert torch.equal(keys, ref_keys)
+    assert (valid is None) == (k % 16 != 0) == (ref_valid is None)
+    if valid is not None:
+        assert torch.equal(valid, ref_valid)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,k", [(100, 22), (100, 56), (150, 78),
                                  (150, 128), (40, 5)])
 def test_kernel_matches_plain_on_card(card, L, k):
-    codes, lengths = _reads(L + k, 2048, L)
-    c = torch.from_numpy(codes).to(card)
-    ln = torch.from_numpy(lengths).to(card)
+    _assert_kernel_equals_plain(card, *_reads(L + k, 2048, L), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,k", [
+    (2051, 100, 56),   # R no multiple of the tile: a ragged last tile
+    (1, 100, 56),      # one read
+    (1, 40, 5), (333, 40, 5),
+    (77, 150, 128),    # ragged, with the validity column
+    (50, 33, 16),      # odd row length: 16-read alignment unit
+    (9, 100, 100),     # one window a read
+    (3, 4096, 127),    # the longest row
+])
+def test_kernel_matches_plain_at_ragged_shapes(card, R, L, k):
+    _assert_kernel_equals_plain(card, *_reads(R + L + k, R, L), k)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_reads_of_length_zero_and_misaligned_views(card):
+    codes, lengths = _reads(9, 700, 100)
+    lengths[::3] = 0
+    codes[::3] = 4
+    _assert_kernel_equals_plain(card, codes, lengths, 56)
+    # a view that starts 100 bytes into its storage is 4-byte aligned
+    # only: every tile then takes the threads' own loads
+    c = torch.from_numpy(codes).to(card)[1:]
+    ln = torch.from_numpy(lengths).to(card)[1:].contiguous()
     kernel = kmer_cuda.KmerExtractKernel()
-    got = kernel(c, ln, k, k % 16 != 0)
-    ref = kmer.extract_canonical_cols(c, ln, k, k % 16 != 0)
+    keys, _ = kernel(c, ln, 56)
+    ref_keys, _ = kmer.extract_sort_keys(c, ln, 56)
     torch.cuda.synchronize()
-    assert kernel.launches == 1
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(keys, ref_keys)
 
 
 @pytest.mark.cuda
@@ -68,10 +105,17 @@ def test_wrapper_checks_its_inputs(card):
     codes = torch.zeros((4, 30), dtype=torch.uint8, device=card)
     lengths = torch.full((4,), 30, dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        kernel(codes.to(torch.int32), lengths, 21, True)
+        kernel(codes.to(torch.int32), lengths, 21)
     with pytest.raises(ValueError):
-        kernel(codes, lengths.to(torch.int64), 21, True)
+        kernel(codes, lengths.to(torch.int64), 21)
     with pytest.raises(ValueError):
-        kernel(codes, lengths, 31, True)
+        kernel(codes, lengths, 31)
     with pytest.raises(ValueError):
-        kernel(codes[:, ::2], lengths, 11, True)
+        kernel(codes[:, ::2], lengths, 11)
+    with pytest.raises(ValueError):
+        kernel(codes, lengths.cpu(), 21)
+    wide = torch.zeros((2, kmer_cuda.MAX_L + 1), dtype=torch.uint8,
+                       device=card)
+    with pytest.raises(ValueError):
+        kernel(wide, lengths[:2], 21)
+    assert kernel.launches == 0

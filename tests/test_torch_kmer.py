@@ -81,24 +81,34 @@ def test_extract_canonical_matches_jax(k):
     assert np.array_equal(fwd.numpy(), np.asarray(jf))
 
 
+def unfused(keys, k):
+    """(G, N) sort keys -> (N, W) uint32 words."""
+    return u32(segments.unfuse_keys(list(keys.unbind(0)),
+                                    dna.words_per_kmer(k)))
+
+
 @pytest.mark.parametrize("k", EXTRACT_KS + [128])
 def test_plain_cols_layout(k):
-    """The kernel's contract: column-major words, the sentinel folded in
-    only when sentinel_safe."""
+    """The kernel's contract: the sort's fused keys, one column a
+    window, the sentinel folded in only when k % 16 != 0."""
     codes, lengths = reads_with_n(k + 1)
     jc, jv, _ = jkmer.extract_canonical_kmers(
         jnp.asarray(codes), jnp.asarray(lengths), k)
-    jc, jv = np.asarray(jc), np.asarray(jv)
+    jc, jv = np.asarray(jc), np.asarray(jv).reshape(-1)
     W = jc.shape[-1]
-    ss = k % 16 != 0
-    words, valid = kmer.extract_canonical_cols(
-        torch.from_numpy(codes), torch.from_numpy(lengths), k, ss)
-    assert words.shape == (W, jc.shape[0] * jc.shape[1])
-    expect = jc.reshape(-1, W).T.copy()
-    if ss:
-        expect[:, ~jv.reshape(-1)] = 0xFFFFFFFF
-    assert np.array_equal(u32(words), expect)
-    assert np.array_equal(valid.numpy(), jv.reshape(-1))
+    keys, valid = kmer.extract_sort_keys(
+        torch.from_numpy(codes), torch.from_numpy(lengths), k)
+    assert keys.shape == ((W + 1) // 2, jv.size) and keys.dtype == torch.int64
+    expect = jc.reshape(-1, W).copy()
+    if k % 16 != 0:
+        assert valid is None
+        expect[~jv] = 0xFFFFFFFF
+    else:
+        assert np.array_equal(valid.numpy(), jv)
+    assert np.array_equal(unfused(keys, k), expect)
+    # the keys are segments.fused_cols of the words, bit for bit
+    fused = segments.fuse_words(torch.from_numpy(expect.astype(np.int64)))
+    assert torch.equal(keys, torch.stack(fused))
 
 
 @pytest.mark.parametrize("k", [21, 33])
@@ -108,21 +118,50 @@ def test_plain_cols_match_pallas_interpret(k):
     cols, jv = kmer_pallas.extract_canonical_cols(
         jnp.asarray(codes), jnp.asarray(lengths), k, interpret=True)
     jv = np.asarray(jv).reshape(-1)
-    words, valid = kmer.extract_canonical_cols(
-        torch.from_numpy(codes), torch.from_numpy(lengths), k, True)
-    assert np.array_equal(valid.numpy(), jv)
+    keys, valid = kmer.extract_sort_keys(
+        torch.from_numpy(codes), torch.from_numpy(lengths), k)
+    words = unfused(keys, k)
+    assert valid is None
+    assert np.array_equal((words != 0xFFFFFFFF).any(axis=1), jv)
     for w, col in enumerate(cols):
-        assert np.array_equal(u32(words[w])[jv],
-                              np.asarray(col).reshape(-1)[jv])
+        assert np.array_equal(words[jv, w], np.asarray(col).reshape(-1)[jv])
+
+
+@pytest.mark.parametrize("k", [22, 34, 56, 78, 128])
+def test_sort_keys_match_pallas_interpret_and_jax_words(k):
+    """Plain ``extract_sort_keys``, unfused, against the TPU kernel in
+    the Pallas interpreter and against the JAX package's plain words, at
+    the (k+1)-mer sizes of the K ladders."""
+    codes, lengths = reads_with_n(k, R=16, L=150, min_len=k + 2)
+    keys, valid = kmer.extract_sort_keys(
+        torch.from_numpy(codes), torch.from_numpy(lengths), k)
+    words = unfused(keys, k)
+    cols, pv = kmer_pallas.extract_canonical_cols(
+        jnp.asarray(codes), jnp.asarray(lengths), k, interpret=True)
+    pv = np.asarray(pv).reshape(-1)
+    jc, jv, _ = jkmer.extract_canonical_kmers(
+        jnp.asarray(codes), jnp.asarray(lengths), k)
+    jc, jv = np.asarray(jc).reshape(-1, words.shape[1]), \
+        np.asarray(jv).reshape(-1)
+    assert np.array_equal(pv, jv) and jv.any() and not jv.all()
+    got_valid = (words != 0xFFFFFFFF).any(axis=1) if valid is None \
+        else valid.numpy()
+    assert np.array_equal(got_valid, jv)
+    assert np.array_equal(words[jv], jc[jv])
+    for w, col in enumerate(cols):
+        assert np.array_equal(words[jv, w], np.asarray(col).reshape(-1)[jv])
 
 
 def test_wrapper_uses_plain_version_on_cpu():
     codes, lengths = reads_with_n(5)
     kernel = kmer_cuda.KmerExtractKernel()
-    got = kernel(torch.from_numpy(codes), torch.from_numpy(lengths), 21, True)
-    ref = kmer.extract_canonical_cols(torch.from_numpy(codes),
-                                      torch.from_numpy(lengths), 21, True)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for k in (21, 32):  # sentinel-safe, and with the validity column
+        got = kernel(torch.from_numpy(codes), torch.from_numpy(lengths), k)
+        ref = kmer.extract_sort_keys(torch.from_numpy(codes),
+                                     torch.from_numpy(lengths), k)
+        assert torch.equal(got[0], ref[0])
+        assert (got[1] is None and ref[1] is None) or \
+            torch.equal(got[1], ref[1])
     assert kernel.launches == 0
 
 
@@ -131,7 +170,7 @@ def test_wrapper_refuses_other_devices():
     codes = torch.zeros((2, 30), dtype=torch.uint8, device="meta")
     lengths = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        kernel(codes, lengths, 21, True)
+        kernel(codes, lengths, 21)
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +208,50 @@ def test_sort_and_count_match_jax(W):
         assert int(n) == int(jn)
         assert np.array_equal(u32(u), np.asarray(ju))
         assert np.array_equal(c.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_unfuse_keys_inverts_fused_cols(W):
+    rows = _rows(W + 40, 64, W)
+    rows[0], rows[1] = 0xFFFFFFFF, 0  # the sentinel row and the least row
+    t = torch.from_numpy(rows.astype(np.int64))
+    fused = segments.fused_cols(list(t.unbind(1)))
+    assert len(fused) == (W + 1) // 2
+    assert torch.equal(segments.unfuse_keys(fused, W), t)
+    assert [int(c[0]) for c in fused] == segments.fused_sentinels(W)
+    # signed key order == unsigned word order
+    order = segments.lexsort_perm(fused)
+    assert np.array_equal(u32(t[order]),
+                          rows[np.lexsort(rows.T[::-1])])
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_count_sorted_keys_matches_jax(W, with_valid):
+    """The counter's path: fused keys in, counted words out, against the
+    JAX package's count on the same rows."""
+    rows = _rows(W + 20, 200, W)
+    valid = np.random.default_rng(W).random(200) < 0.8
+    if with_valid:  # all-ones is then a real row (k % 16 == 0)
+        rows[5] = rows[6] = 0xFFFFFFFF
+        valid[5] = valid[6] = True
+        keyed = rows
+    else:
+        keyed = np.where(valid[:, None], rows, np.uint32(0xFFFFFFFF))
+    keys = segments.fuse_words(torch.from_numpy(keyed.astype(np.int64)))
+    u, c, n = segments.count_sorted_keys(
+        keys, W, torch.from_numpy(valid) if with_valid else None)
+    ju, jc, jn = jseg.count_sorted(jnp.asarray(rows), jnp.asarray(valid),
+                                   None, sentinel_safe=not with_valid)
+    assert int(n) == int(jn) and c.dtype == torch.int32
+    assert np.array_equal(u32(u), np.asarray(ju))
+    assert np.array_equal(c.numpy(), np.asarray(jc))
+    if not with_valid:
+        cu, cc, cn = jseg.count_sorted_cols(
+            [jnp.asarray(rows[:, w]) for w in range(W)], jnp.asarray(valid))
+        assert int(n) == int(cn)
+        assert np.array_equal(u32(u), np.asarray(cu))
+        assert np.array_equal(c.numpy(), np.asarray(cc))
 
 
 @pytest.mark.parametrize("N", [1, 7, 64, 100])
