@@ -89,6 +89,21 @@ def graph_from_numpy(arrays: dict, k: int, device="cpu") -> Graph:
         flank=None if flank is None else _as(flank, np.float32, device))
 
 
+def graph_to_saved_arrays(g: Graph) -> dict:
+    """Graph -> {field: numpy array} as checkpoint files hold it: the JAX
+    package's dtypes (int32 indices, 0-dim int32 ``num_edges``), ``flank``
+    only where the graph has one. ``graph_from_numpy`` reads it back, and
+    so does the JAX package."""
+    out = {}
+    for name, value in graph_to_numpy(g).items():
+        if value is None:
+            continue
+        if name == "num_edges" or value.dtype == np.int64:
+            value = np.asarray(value, dtype=np.int32)
+        out[name] = value
+    return out
+
+
 def graph_to_numpy(g: Graph) -> dict:
     """Graph -> {field: numpy array}, indices as int64, num_edges as int."""
     out = {name: (None if getattr(g, name) is None

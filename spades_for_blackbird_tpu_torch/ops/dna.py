@@ -30,8 +30,8 @@ _CHAR_TO_CODE = np.full(256, INVALID_CODE, dtype=np.uint8)
 for _ch, _code in (("A", A), ("C", C), ("G", G), ("T", T),
                    ("a", A), ("c", C), ("g", G), ("t", T)):
     _CHAR_TO_CODE[ord(_ch)] = _code
-_CODE_TO_CHAR = np.array([ord("A"), ord("C"), ord("G"), ord("T"), ord("N")],
-                         dtype=np.uint8)
+CODE_TO_CHAR = np.array([ord("A"), ord("C"), ord("G"), ord("T"), ord("N")],
+                        dtype=np.uint8)
 
 
 def words_per_kmer(k: int) -> int:
@@ -58,7 +58,7 @@ def encode_str(s: str) -> np.ndarray:
 def decode_codes(codes: np.ndarray) -> str:
     """uint8 code array -> ASCII DNA string (host side)."""
     codes = np.asarray(codes, dtype=np.uint8)
-    return bytes(_CODE_TO_CHAR[np.minimum(codes, INVALID_CODE)]).decode(
+    return bytes(CODE_TO_CHAR[np.minimum(codes, INVALID_CODE)]).decode(
         "ascii")
 
 
@@ -82,6 +82,21 @@ _RC_TABLE = str.maketrans("ACGTacgtN", "TGCAtgcaN")
 def revcomp_str(seq: str) -> str:
     """Reverse-complement of an ASCII sequence string (host-side)."""
     return seq.translate(_RC_TABLE)[::-1]
+
+
+def complement_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Complement 2-bit codes; INVALID stays INVALID."""
+    return torch.where(codes >= INVALID_CODE, codes, 3 - codes)
+
+
+def revcomp_reads(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse-complement a padded read batch (R, L), keeping each read
+    left-aligned (padding stays at the end)."""
+    L = codes.shape[1]
+    rc = torch.flip(complement_codes(codes), dims=(1,))
+    shift = (L - lengths.to(torch.int64))[:, None]
+    col = (torch.arange(L, device=codes.device)[None, :] + shift) % L
+    return torch.gather(rc, 1, col)
 
 
 # ---------------------------------------------------------------------------

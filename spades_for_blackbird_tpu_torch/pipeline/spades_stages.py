@@ -1,0 +1,292 @@
+"""Concrete stage list for the main assembly pipeline.
+
+PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/spades_stages.py``
+(``assemble_genome``'s stage assembly, projects/spades/pipeline.cpp:213-290):
+ReadConversion -> [ErrorCorrection] -> one iteration stage per K
+(Construction + GenomicInfoFiller + Simplification fused) ->
+RepeatResolution -> ContigOutput.
+
+Ported so far: read conversion, the iteration stages, repeat resolution
+without a paired library, and contig output. Every other stage of the JAX
+package's list still takes its place under its name, as a stage that
+raises ``NotImplementedError`` (``_unported``); ``cli.main`` reads their
+``unported`` field before it runs anything.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..io import fasta, fastg, fastq, gfa
+from ..ops import dna
+from ..utils.device import resolve_device
+from . import assemble
+from .config import AssemblyConfig
+from .stages import PipelineContext, Stage
+
+
+def _unported(name: str, queue_item: str) -> Stage:
+    """Placeholder for a stage whose module is not ported yet."""
+    what = (f"stage '{name}' is not ported to PyTorch yet (ROADMAP.md, "
+            f"Queue 1, {queue_item})")
+
+    def run(ctx: PipelineContext):
+        raise NotImplementedError(what)
+    return Stage(name, run, unported=what)
+
+
+def _rc_batch(b):
+    """Reverse-complement a read batch in place (mirroring qualities)."""
+    b.codes = dna.revcomp_reads(torch.from_numpy(b.codes),
+                                torch.from_numpy(b.lengths)).numpy()
+    if b.quals is not None:
+        # mirror each row's quality prefix alongside the RC
+        L = b.quals.shape[1]
+        idx = (b.lengths.astype(np.int64)[:, None] - 1
+               - np.arange(L)[None, :])
+        b.quals = np.where(
+            idx >= 0,
+            np.take_along_axis(b.quals, np.maximum(idx, 0), axis=1),
+            0).astype(b.quals.dtype)
+
+
+def _to_fr(b1, b2, orientation: str):
+    """Convert a paired library to FR geometry
+    (library.hpp orientation FR/RF/FF): RF ("outie") rc's both mates,
+    FF rc's the second mate only."""
+    if orientation == "rf":
+        _rc_batch(b1)
+        _rc_batch(b2)
+    elif orientation == "ff":
+        _rc_batch(b2)
+
+
+def make_read_conversion(pe_pairs, interlaced, singles, log, mp_pairs=(),
+                         pe_orientation: str = "fr",
+                         mp_orientation: str = "rf", device=None):
+    """Parse every library on the host, then put the reads on ``device``
+    once, for all the stages after: on the card unless ``"cpu"`` is asked
+    for (``resolve_device``, which raises where there is no card)."""
+    device = resolve_device(device)
+
+    def run(ctx: PipelineContext):
+        batches = []
+        paired_ranges = []
+        row = 0
+
+        def add_pair(b1, b2, kind):
+            nonlocal row
+            batches.extend([b1, b2])
+            paired_ranges.append((row, b1.num_reads,
+                                  row + b1.num_reads, b2.num_reads, kind))
+            row += b1.num_reads + b2.num_reads
+
+        for p1, p2 in pe_pairs:
+            b1, b2 = fastq.load_paired_reads(p1, p2, with_quals=True)
+            _to_fr(b1, b2, pe_orientation)
+            add_pair(b1, b2, "pe")
+            log(f"loaded paired library {p1} + {p2}: {b1.num_reads} pairs"
+                + (f" ({pe_orientation}->fr)"
+                   if pe_orientation != "fr" else ""))
+        for p1, p2 in mp_pairs:
+            # mate pairs default RF ("outie", library_fwd.hpp MatePairs)
+            b1, b2 = fastq.load_paired_reads(p1, p2, with_quals=True)
+            _to_fr(b1, b2, mp_orientation)
+            add_pair(b1, b2, "mp")
+            log(f"loaded mate-pair library {p1} + {p2}: "
+                f"{b1.num_reads} pairs ({mp_orientation}->fr)")
+        for ip in interlaced:
+            b = fastq.load_reads(ip, with_quals=True)
+            # even rows = first mates, odd = second; split into halves
+            q = b.quals
+            ev = fastq.ReadBatch(b.codes[0::2], b.lengths[0::2], None,
+                                 q[0::2] if q is not None else None)
+            od = fastq.ReadBatch(b.codes[1::2], b.lengths[1::2], None,
+                                 q[1::2] if q is not None else None)
+            add_pair(ev, od, "pe")
+            log(f"loaded interlaced library {ip}: {b.num_reads // 2} pairs")
+        for sp in singles:
+            b = fastq.load_reads(sp, with_quals=True)
+            batches.append(b)
+            row += b.num_reads
+            log(f"loaded single library {sp}: {b.num_reads} reads")
+        batch = fastq.concat_batches(batches)
+        ctx.codes = torch.from_numpy(
+            np.ascontiguousarray(batch.codes)).to(device)
+        ctx.lengths = torch.from_numpy(
+            np.ascontiguousarray(batch.lengths)).to(device)
+        ctx.quals = batch.quals  # None when any library lacks qualities
+        ctx.paired_ranges = paired_ranges
+        ctx.read_length = int(batch.lengths.max()) if batch.num_reads else 0
+        log(f"total reads: {batch.num_reads}, max length {ctx.read_length}")
+    return Stage("read_conversion", run)
+
+
+def make_iteration(k: int, log, min_contig_length=None, simplify_cfg=None,
+                   name=None, min_kmer_count=1, output_dir=None,
+                   device=None):
+    """One rung. ``device`` as ``assemble_single_k`` takes it: by default
+    the card the context's reads are on, else the first card; the CPU
+    only on request."""
+    def run(ctx: PipelineContext):
+        cfg = simplify_cfg
+        if cfg is not None and ctx.read_length:
+            cfg = dataclasses.replace(cfg, read_length=ctx.read_length)
+        # of the last rung only the contigs go on: its graph is released
+        # before this rung builds its own
+        ctx.graph = None
+        res = assemble.assemble_single_k(
+            ctx.codes, ctx.lengths, k, cfg=cfg,
+            min_contig_length=min_contig_length,
+            min_kmer_count=min_kmer_count,
+            extra_sequences=[s for s, _ in ctx.contigs],
+            phase_dir=(os.path.join(output_dir, "saves", "phases")
+                       if output_dir else None),
+            device=device)
+        ctx.contigs = res.contigs
+        ctx.graph = res.graph
+        ctx.genomic_info = res.genomic_info
+        ctx.params.setdefault("ks_done", []).append(k)
+        log(f"K={k}: {res.stats}")
+    return Stage(name or f"k{k}", run)
+
+
+def _range_kind(r) -> str:
+    return r[4] if len(r) > 4 else "pe"
+
+
+def make_repeat_resolution(log):
+    """Without a paired library the contigs pass through. The paired
+    branch (mapping, paired info, path extension) is not ported yet."""
+    def run(ctx: PipelineContext):
+        if not ctx.paired_ranges or ctx.graph is None:
+            ctx.final_contigs = list(ctx.contigs)
+            log("no paired libraries: RR skipped (contig paths only, "
+                "repeat_resolving.cpp:62 'rr disabled' branch)")
+            return
+        kinds = sorted({_range_kind(r) for r in ctx.paired_ranges})
+        raise NotImplementedError(
+            f"repeat resolution over paired libraries ({', '.join(kinds)}) "
+            f"is not ported to PyTorch yet (ROADMAP.md, Queue 1, d)")
+    return Stage("repeat_resolution", run)
+
+
+def make_contig_output(output_dir: str, log, cfg=None):
+    if cfg is not None and cfg.circular_output:
+        # contigs.circular.fasta waits for models/plasmid.py
+        return _unported("contig_output", "item 11")
+
+    def run(ctx: PipelineContext):
+        fasta.write_contigs_fasta(
+            os.path.join(output_dir, "before_rr.fasta"), ctx.contigs)
+        final = ctx.final_contigs or ctx.contigs
+        fasta.write_contigs_fasta(
+            os.path.join(output_dir, "contigs.fasta"), final)
+        fasta.write_contigs_fasta(
+            os.path.join(output_dir, "scaffolds.fasta"),
+            ctx.scaffolds or final)
+        if ctx.graph is not None:
+            def named(contig_list, raw_paths):
+                # names must match the fasta headers the same list got
+                return [(f"NODE_{i}_length_{len(s)}_cov_{c:.6f}",
+                         [(int(e), int(gap)) for e, gap in p])
+                        for i, ((s, c), p) in enumerate(
+                            zip(contig_list, raw_paths), start=1)]
+            cpaths = named(final, ctx.params.get("contig_paths", []))
+            spaths = named(ctx.scaffolds or final,
+                           ctx.params.get("scaffold_paths", []))
+            # scaffold paths ride the GFA as P records; the .paths files
+            # mirror the FastG edge numbering (contig_output_stage.cpp:
+            # 105-112 WritePaths on both writers)
+            gfa.write_gfa(
+                os.path.join(output_dir,
+                             "assembly_graph_with_scaffolds.gfa"),
+                ctx.graph, paths=spaths)
+            if cpaths:
+                gfa.write_paths_file(
+                    os.path.join(output_dir, "contigs.paths"),
+                    ctx.graph, cpaths)
+            if spaths:
+                gfa.write_paths_file(
+                    os.path.join(output_dir, "scaffolds.paths"),
+                    ctx.graph, spaths)
+            fastg.write_fastg(os.path.join(
+                output_dir, "assembly_graph.fastg"), ctx.graph)
+        log(f"wrote {len(final)} contigs to {output_dir}")
+    return Stage("contig_output", run)
+
+
+def build_stage_list(args, ks, log, cfg=None, device=None):
+    """pipeline.cpp:250-285 equivalent (mode-aware), in the JAX package's
+    order; ``device`` is where the reads and graphs live: the card unless
+    ``"cpu"`` is asked for, and without a card this raises."""
+    device = resolve_device(device)
+    if cfg is None:
+        cfg = AssemblyConfig()
+    pe_pairs = list(zip(args.pe1, args.pe2))
+    mp_pairs = list(zip(getattr(args, "mp1", []), getattr(args, "mp2", [])))
+    paired = bool(pe_pairs or mp_pairs or args.interlaced)
+    stages = [make_read_conversion(
+        pe_pairs, args.interlaced, args.single, log, mp_pairs=mp_pairs,
+        pe_orientation=getattr(args, "pe_orientation", "fr"),
+        mp_orientation=getattr(args, "mp_orientation", "rf"),
+        device=device)]
+    if not args.only_assembler and cfg.correction_enabled:
+        # BayesHammer, or ionhammer with --iontorrent
+        stages.append(_unported("error_correction", "c"))
+    if getattr(args, "assembly_graph", None):
+        # LoadGraph replaces construction (load_graph.cpp:16-36)
+        stages.append(_unported("load_graph", "item 11"))
+    else:
+        cc = getattr(args, "cov_cutoff", "off")
+        min_kc = 1 if cc == "off" else ("auto" if cc == "auto" else int(cc))
+        for k in ks:
+            stages.append(make_iteration(
+                k, log, min_contig_length=args.min_contig_length,
+                simplify_cfg=cfg.simplify, min_kmer_count=min_kc,
+                output_dir=args.output_dir, device=device))
+    if getattr(args, "ss", None) and cfg.strand_specific:
+        stages.append(_unported("ss_edge_split", "item 11"))
+    if paired:
+        stages.append(_unported("gap_closing", "d"))
+    long_reads = (getattr(args, "pacbio", []) +
+                  getattr(args, "nanopore", []) +
+                  getattr(args, "sanger", []))
+    if long_reads:
+        # the reference runs HybridLibrariesAligning twice
+        # (pipeline.cpp:271-274)
+        stages.append(_unported("hybrid_aligning", "item 11"))
+        stages.append(_unported("hybrid_aligning_2", "item 11"))
+    if cfg.careful or getattr(args, "careful", False):
+        stages.append(_unported("mismatch_correction", "e"))
+    if cfg.chromosome_removal:
+        stages.append(_unported("chromosome_removal", "item 11"))
+    if getattr(args, "series_analysis", None):
+        # before RR (pipeline.cpp:205-206)
+        stages.append(_unported("series_analysis", "item 11"))
+
+    def repeat_resolution(name):
+        if paired:
+            return _unported(name, "d")
+        return dataclasses.replace(make_repeat_resolution(log), name=name)
+
+    stages.append(repeat_resolution("repeat_resolution"))
+    hmm_set = getattr(args, "custom_hmms", None)
+    if cfg.two_step_rr:
+        if hmm_set:
+            # ExtractDomains on the preliminary contigs
+            # (pipeline.cpp:145-146)
+            stages.append(_unported("extract_domains", "item 11"))
+        # meta: SecondPhaseSetup re-feeds the preliminary RR contigs into
+        # a final iteration + RR, restricted edges protected
+        stages.append(_unported("second_phase_setup", "f"))
+        stages.append(repeat_resolution("repeat_resolution_2"))
+    stages.append(make_contig_output(args.output_dir, log, cfg))
+    if hmm_set:
+        # DomainGraphConstruction last (pipeline.cpp:285-286)
+        stages.append(_unported("domain_graph_construction", "item 11"))
+    return stages

@@ -16,6 +16,7 @@ Properties format (same shape as the reference's log.properties):
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -85,6 +86,20 @@ def configure(properties_path: str | None = None,
         cfg.writers = list(writers)
     global _config
     _config = cfg
+
+
+@contextlib.contextmanager
+def configured(**kwargs):
+    """``configure(**kwargs)`` for the length of a ``with`` block: the
+    configuration found at its start comes back at its end, so a writer
+    on a file the block closes does not outlive the file."""
+    global _config
+    saved = _config
+    configure(**kwargs)
+    try:
+        yield
+    finally:
+        _config = saved
 
 
 def add_writer(writer) -> None:

@@ -29,6 +29,12 @@ def enable() -> None:
         _events.clear()
 
 
+def disable() -> None:
+    """Stop collecting; the events collected so far stay for ``dump``."""
+    global _enabled
+    _enabled = False
+
+
 def enabled() -> bool:
     return _enabled
 
@@ -54,6 +60,12 @@ def scope(name: str, **args):
                 "tid": threading.get_ident() % 100000,
                 **({"args": args} if args else {}),
             })
+
+
+def events() -> list[dict]:
+    """A copy of the events collected since ``enable``."""
+    with _lock:
+        return list(_events)
 
 
 def dump(path: str) -> None:

@@ -87,10 +87,8 @@ def test_contigs_fasta_and_min_length(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    {"extra_sequences": ["ACGT" * 20]},
     {"restricted_sequences": ["ACGT" * 20]},
     {"uneven_depth": True},
-    {"phase_dir": "somewhere"},
 ])
 def test_unported_options_raise(option):
     codes, lengths = dna.encode_reads(["ACGT" * 15])
@@ -131,9 +129,16 @@ sys.modules["spades_for_blackbird_tpu"] = None
 import numpy as np
 import spades_for_blackbird_tpu_torch as pkg
 names = [m.name for m in
-         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith("__main__")]  # that one runs the CLI
 for name in names:
     importlib.import_module(name)
+for name in ("cli", "native", "pipeline.stages", "pipeline.spades_stages",
+             "pipeline.config", "io.fastq", "io.gfa", "io.fastg",
+             "io.read_store", "utils.membudget", "path_extend.resolver"):
+    assert pkg.__name__ + "." + name in sys.modules, name
+from spades_for_blackbird_tpu_torch import cli
+from spades_for_blackbird_tpu_torch.io import fastq
 from spades_for_blackbird_tpu_torch.ops import dna
 from spades_for_blackbird_tpu_torch.pipeline import assemble
 from spades_for_blackbird_tpu_torch.utils import simulate
@@ -144,15 +149,23 @@ r1, _, r2, _ = simulate.simulate_paired_reads(genome, 300, read_len=60,
 codes, lengths = dna.encode_reads(r1 + r2)
 res = assemble.assemble_single_k(codes, lengths, 21, device="cpu")
 assert res.contigs, "no contigs"
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+out = sys.argv[1]
+fastq.write_reads_fastq(out + "/reads.fq", codes, lengths)
+assert cli.main(["-s", out + "/reads.fq", "-o", out + "/out", "-k", "21",
+                 "--only-assembler", "--device", "cpu"]) == 0
+assert fastq.read_sequences(out + "/out/contigs.fasta")[1] == \
+    [s for s, _ in res.contigs]
+for banned in ("jax", "spades_for_blackbird_tpu"):
+    assert not any(m == banned or m.startswith(banned + ".")
+                   for m in sys.modules if sys.modules[m] is not None), banned
 print("modules", len(names), "contigs", len(res.contigs))
 """
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", NO_JAX], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", NO_JAX, str(tmp_path)],
+                          cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "contigs" in proc.stdout

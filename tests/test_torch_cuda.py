@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written
-k-mer extraction kernel against its plain PyTorch version. They skip
-without a card. This file imports no JAX, so on a machine with the card
+k-mer extraction kernel against its plain PyTorch version, and the K
+ladder on the card against the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
 and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,7 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
-from spades_for_blackbird_tpu_torch.ops import kmer, kmer_cuda  # noqa: E402
+from spades_for_blackbird_tpu_torch.ops import dna, kmer, kmer_cuda  # noqa: E402
+from spades_for_blackbird_tpu_torch.pipeline import assemble  # noqa: E402
+from spades_for_blackbird_tpu_torch.utils import simulate  # noqa: E402
 
 
 @pytest.fixture
@@ -119,3 +121,53 @@ def test_wrapper_checks_its_inputs(card):
     with pytest.raises(ValueError):
         kernel(wide, lengths[:2], 21)
     assert kernel.launches == 0
+
+
+def _contigs(seed, sizes):
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(list("ACGT"), size=n)) for n in sizes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [22, 34, 56])
+def test_kernel_matches_plain_on_contig_windows(card, k):
+    """What the ladder's second and later rungs hand the kernel: rows as
+    wide as the reads, most of them full, one ragged tail a contig, whole
+    short contigs as single rows, a row count that is no multiple of the
+    tile's reads; aligned, and as a view that starts one row in."""
+    seqs = _contigs(k, [k, k + 3, 99, 100, 101, 777, 4321, 15_013, 60_000])
+    codes, lengths = assemble._windows_from_sequences(seqs, 100, k)
+    if codes.shape[0] % 4 == 0:  # a tile holds a multiple of 4 such rows
+        codes, lengths = codes[:-1], lengths[:-1]
+    assert codes.shape[1] == 100
+    assert len(set(lengths.tolist())) > 4
+    _assert_kernel_equals_plain(card, codes, lengths, k)
+    c = torch.from_numpy(codes).to(card)[1:]
+    ln = torch.from_numpy(lengths).to(card)[1:].contiguous()
+    keys, _ = kmer_cuda.KmerExtractKernel()(c, ln, k)
+    ref_keys, _ = kmer.extract_sort_keys(c, ln, k)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref_keys)
+
+
+@pytest.mark.cuda
+def test_multi_k_card_equals_cpu(card):
+    genome = simulate.random_genome(20_000, seed=5, repeats=[(400, 2)])
+    r1, _, r2, _ = simulate.simulate_paired_reads(
+        genome, 4000, read_len=100, error_rate=0.002, seed=6)
+    codes, lengths = dna.encode_reads(r1 + r2)
+    before = kmer_cuda.extract_sort_keys.launches
+    gpu = assemble.assemble_multi_k(codes, lengths, [21, 33, 55], device=card)
+    # three rungs on the reads, two on contig windows
+    assert kmer_cuda.extract_sort_keys.launches - before >= 5
+    cpu = assemble.assemble_multi_k(codes, lengths, [21, 33, 55],
+                                    device="cpu")
+
+    def canonical(contigs):
+        return sorted((min(s, dna.revcomp_str(s)), c) for s, c in contigs)
+    a, b = canonical(gpu.contigs), canonical(cpu.contigs)
+    assert [s for s, _ in a] == [s for s, _ in b]
+    # float32 sums run in another order on the card
+    np.testing.assert_allclose([c for _, c in a], [c for _, c in b],
+                               rtol=1e-4)
+    assert gpu.graph.device.type == "cuda"
