@@ -18,12 +18,17 @@ prints no result):
    k+1 = 22, 34 and 56, the rungs of the default ladder), and small
    ragged shapes (a last tile that is not full, one read, reads of
    length 0, a misaligned view);
-   sort keys and validity must be bit-equal; CUDA events time the bare
-   kernel launch, the wrapper (the call the counter makes: allocation
-   and launch) and the plain version, beside the bound: the larger of
-   the bytes the kernel must move over the card's memory rate and its
-   integer operations over the card's instruction rate; ``count_kmers`` on
-   one chunk is timed too;
+   sort keys and validity must be bit-equal; so must the strand entry's
+   keys, validity and strand byte (``kmer_cuda.extract_canonical_keys``)
+   at every one of those shapes and at the error corrector's own (L = 100,
+   k = 21: all 1.84M reads, and the chunks its statistics, expansion and
+   voting passes take); CUDA events time the bare kernel launch, the
+   wrapper (the call the counter makes: allocation and launch) and the
+   plain version, beside the bound: the larger of the bytes the kernel
+   must move over the card's memory rate and its integer operations over
+   the card's instruction rate; ``count_kmers`` on one chunk is timed too;
+   at the corrector's shapes the launch is timed with and without the
+   strand byte;
 3. ``assemble_single_k`` at k=21 on a 20 kb simulated genome on the card
    and on the CPU: identical canonical contigs, coverages within
    rtol 1e-4 (float32 sums run in another order on the card); the
@@ -32,7 +37,12 @@ prints no result):
    aligned and as a misaligned view; then the same reads as a FASTQ file
    through the command line twice, ``--device cuda`` and ``--device
    cpu``, at -k 21,33,55: identical contig sequences, coverages within
-   rtol 1e-4, identical GFA segments and links;
+   rtol 1e-4, identical GFA segments and links; the error corrector on
+   the same reads with their qualities (``correct_reads``) on the card
+   and on the CPU: identical corrected codes and stats; the default
+   command (correction, then the ladder) through the command line on
+   both: identical contigs; ``--iontorrent --only-error-correction`` on
+   both: identical corrected reads;
 4. the full-size run: ``assemble_single_k`` at k=55 on a simulated
    E. coli-sized genome (4.6 Mb, seed 7, 40x, 100 bp paired reads,
    error rate 0.002, planted repeats), graded against the truth with
@@ -45,16 +55,31 @@ prints no result):
    the union of device spans over the run's wall); with
    ``--host-profile`` once more under ``cProfile`` (the host's hot
    functions);
-6. the ladder at full size through the command line: the same simulated
-   reads written as one FASTQ file, then ``cli.main(["-s", fq, "-o", out,
-   "--only-assembler", "--trace-time"])``, the default ladder 21, 33, 55.
-   It must return 0, meet the same quality bar on ``contigs.fasta``, write
-   a GFA that reads back with one segment a live edge pair, and launch the
-   kernel at least 5 times (3 rungs on the reads, 2 on contig windows).
-   Wall seconds of the call, of each stage, of ``count_extra_contigs``
-   and of the checkpoint saves are printed, and the peak device memory;
+6. the ladder through the command line on a 1 Mb simulation of the same
+   kind (4.6 Mb until the error corrector came; its five stage saves
+   alone took 3 minutes there): the reads written as one FASTQ file, then
+   ``cli.main(["-s", fq, "-o", out, "--only-assembler", "--trace-time"])``,
+   the default ladder 21, 33, 55, default checkpoints. It must return 0,
+   meet the same quality bar on ``contigs.fasta``, write a GFA that reads
+   back with one segment a live edge pair, and launch the kernel at least
+   5 times (3 rungs on the reads, 2 on contig windows). Wall seconds of
+   the call, of each stage, of ``count_extra_contigs`` and of the
+   checkpoint saves are printed, and the peak device memory;
    ``--continue`` on the finished directory must return 0 and run no
-   stage.
+   stage;
+7. the error corrector at full size: the 4.6 Mb simulation of phase 4
+   with its qualities; the true reads are the same simulation with no
+   errors (the generator draws the same numbers). (a) ``correct_reads``
+   on the card, timed by scope: bases wrong before and after, bases it
+   made wrong; at most a quarter of the wrong bases may be left. (b) the
+   default command, ``cli.main(["-s", fq, "-o", out, "--checkpoints",
+   "none", "--trace-time"])`` on the reads written with their qualities:
+   it must return 0, meet the quality bar on ``contigs.fasta`` and log
+   (a)'s correction stats. (a) runs once more under ``torch.profiler``
+   (the card's busy share). The kernel must launch inside the corrector,
+   and while this phase runs the plain extraction raises if it is handed
+   a tensor on the card. Wall, stages, the corrector's scopes and the
+   peak device memory are printed.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 2 before printing any result. The last two lines of standard output are
@@ -64,6 +89,8 @@ the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ast
+import contextlib
 import cProfile
 import io
 import json
@@ -95,7 +122,11 @@ RAGGED_SHAPES = ((100, 56, 100_003), (100, 56, 1), (40, 5, 1), (40, 5, 333),
                  (150, 128, 77), (33, 16, 50), (100, 100, 9), (4096, 127, 3))
 FULL_K = 55
 LADDER_KS = (21, 33, 55)  # the default ladder for 100 bp reads
+HAMMER_K = 21  # BayesHammer's k (make_error_correction)
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
+LADDER_GENOME = 1_000_000  # phase 6: the checkpointed ladder's cut size
+HAMMER_SCOPES = ("hammer_count", "hammer_cluster", "hammer_subcluster",
+                 "hammer_expand", "hammer_vote")
 FULL_COVERAGE = 40.0
 FULL_READ_LEN = 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -121,16 +152,36 @@ def encode_fixed(reads: list[str]) -> np.ndarray:
 def simulate_reads(genome_size: int, coverage: float, read_len: int,
                    seed: int, error_rate: float = 0.002):
     """scale_bench.py's simulation: planted repeats, FR pairs, insert 300.
-    Returns (genome, codes (R, L) uint8, lengths (R,) int32)."""
+    Returns (genome, codes (R, L) uint8, lengths (R,) int32, quals (R, L)
+    uint8 phred+33)."""
     from spades_for_blackbird_tpu_torch.utils import simulate
     genome = simulate.random_genome(genome_size, seed=seed,
                                     repeats=[(2000, 3), (700, 4), (400, 6)])
     n_pairs = int(coverage * genome_size / (2 * read_len))
-    r1, _, r2, _ = simulate.simulate_paired_reads(
+    r1, q1, r2, q2 = simulate.simulate_paired_reads(
         genome, n_pairs, read_len=read_len, insert_mean=300.0,
         insert_sd=25.0, error_rate=error_rate, seed=seed + 1)
     codes = encode_fixed(r1 + r2)
-    return genome, codes, np.full(codes.shape[0], read_len, np.int32)
+    quals = np.frombuffer("".join(q1 + q2).encode("ascii"),
+                          np.uint8).reshape(codes.shape).copy()
+    return genome, codes, np.full(codes.shape[0], read_len, np.int32), quals
+
+
+def write_fastq(path: str, codes, quals) -> None:
+    """Equal-length reads with their qualities as one FASTQ file, written
+    in bulk: one text row a read."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    R, L = codes.shape
+    with open(path, "wb") as f:
+        for lo in range(0, R, 1 << 18):
+            c = dna.CODE_TO_CHAR[np.minimum(codes[lo:lo + (1 << 18)], 4)]
+            q = quals[lo:lo + (1 << 18)]
+            n = c.shape[0]
+            names = np.char.encode(np.char.add(
+                "@read_", np.arange(lo, lo + n).astype(str)))
+            f.write(b"".join(
+                b"%s\n%s\n+\n%s\n" % (name, cr.tobytes(), qr.tobytes())
+                for name, cr, qr in zip(names, c, q)))
 
 
 def card_name() -> str:
@@ -201,12 +252,14 @@ def noisy_reads(rng, codes, lengths):
     return codes, lengths
 
 
-def kernel_bytes(R: int, L: int, k: int) -> int:
+def kernel_bytes(R: int, L: int, k: int, strand: bool = False) -> int:
     """What the kernel must move: every code and length read once, every
-    key (and, where k % 16 == 0, validity byte) written once."""
+    key (and, where k % 16 == 0, validity byte; with ``strand`` the
+    strand byte) written once."""
     windows = R * (L - k + 1)
     key_cols = ((k + 15) // 16 + 1) // 2
-    return R * L + 4 * R + (8 * key_cols + (k % 16 == 0)) * windows
+    return (R * L + 4 * R
+            + (8 * key_cols + (k % 16 == 0) + strand) * windows)
 
 
 def kernel_ops(R: int, L: int, k: int) -> int:
@@ -218,14 +271,20 @@ def kernel_ops(R: int, L: int, k: int) -> int:
     return windows * (4 * words + (words + 1) // 2) + 4 * R * L
 
 
-def compare_kernel(kernel, c, ln, k) -> float:
-    """Kernel vs plain version on the same tensors: the largest absolute
-    difference of the unfused words and validity (0.0: bit-equal)."""
+def bound_of(R: int, L: int, k: int, strand: bool = False):
+    """(bound ms, what bounds it, bytes moved)."""
+    moved = kernel_bytes(R, L, k, strand)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = kernel_ops(R, L, k) / INT_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", moved)
+
+
+def outputs_err(k, keys, valid, ref_keys, ref_valid) -> float:
+    """The largest absolute difference of the unfused words and validity
+    of two extractions (0.0: bit-equal)."""
+    from spades_for_blackbird_tpu_torch.ops import dna, segments
     import torch
-    from spades_for_blackbird_tpu_torch.ops import dna, kmer, segments
-    keys, valid = kernel(c, ln, k)
-    ref_keys, ref_valid = kmer.extract_sort_keys(c, ln, k)
-    torch.cuda.synchronize()
     if (valid is None) != (ref_valid is None):
         return float("inf")
     err = 0.0
@@ -240,9 +299,25 @@ def compare_kernel(kernel, c, ln, k) -> float:
     return err
 
 
+def compare_kernel(kernel, c, ln, k) -> float:
+    """Kernel vs plain version on the same tensors, both entries: sort
+    keys, validity and strand bytes (0.0: bit-equal)."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import kmer
+    err = outputs_err(k, *kernel(c, ln, k), *kmer.extract_sort_keys(c, ln, k))
+    keys, valid, fwd = kernel.canonical_keys(c, ln, k)
+    ref_keys, ref_valid, ref_fwd = kmer.extract_canonical_keys(c, ln, k)
+    torch.cuda.synchronize()
+    err = max(err, outputs_err(k, keys, valid, ref_keys, ref_valid))
+    if not torch.equal(fwd, ref_fwd):
+        err = max(err, 1.0)
+    return err
+
+
 def phase_kernel_vs_plain(device) -> dict:
     """Bit-equality and timing of the kernel against the plain version."""
     import torch
+    from spades_for_blackbird_tpu_torch.hammer import bayes, correct
     from spades_for_blackbird_tpu_torch.kmers import counter
     from spades_for_blackbird_tpu_torch.ops import kmer, kmer_cuda
 
@@ -277,10 +352,19 @@ def phase_kernel_vs_plain(device) -> dict:
         (FULL_READ_LEN, k + 1, min(full_reads, counter.chunk_reads_for(
             FULL_READ_LEN, k + 1, device)))
         for k in LADDER_KS)
+    # the error corrector's: its k-mers over all the reads, and the chunks
+    # its statistics, expansion and voting passes take
+    hammer_shapes = tuple(dict.fromkeys(
+        (FULL_READ_LEN, HAMMER_K, min(full_reads, n)) for n in (
+            full_reads,
+            bayes.stats_chunk_reads(FULL_READ_LEN, HAMMER_K, device),
+            bayes.expand_chunk_reads(FULL_READ_LEN, HAMMER_K, device),
+            correct.vote_chunk_reads(FULL_READ_LEN, HAMMER_K, device))))
+    log(f"[kernel] the corrector's shapes (L, k, reads): {hammer_shapes}")
     rows = []
     for L in (100, 150):
-        shapes = [sh for sh in dict.fromkeys(SMOKE_SHAPES + main_shapes)
-                  if sh[0] == L]
+        shapes = [sh for sh in dict.fromkeys(
+            SMOKE_SHAPES + main_shapes + hammer_shapes) if sh[0] == L]
         most = max(R for _, _, R in shapes)
         codes, lengths = noisy_reads(rng, *sampled_reads(rng, most, L))
         codes_d = torch.from_numpy(codes).to(device)
@@ -294,27 +378,43 @@ def phase_kernel_vs_plain(device) -> dict:
             flags = torch.empty(n, dtype=torch.uint8, device=device) \
                 if k % 16 == 0 else None
             ms = cuda_ms(lambda: kernel.launch(c, ln, k, keys, flags), 10)
+            strand = (L, k, R) in hammer_shapes
+            if strand:
+                fwd = torch.empty(n, dtype=torch.uint8, device=device)
+                strand_ms = cuda_ms(
+                    lambda: kernel.launch(c, ln, k, keys, flags, fwd), 10)
+                del fwd
             del keys, flags
             wrapper_ms = cuda_ms(lambda: kernel(c, ln, k), 10)
             plain_ms = cuda_ms(lambda: kmer.extract_sort_keys(c, ln, k), 3)
-            moved = kernel_bytes(R, L, k)
-            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-            ops_ms = kernel_ops(R, L, k) / INT_OPS_PER_S * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
+            bound_ms, bound_by, moved = bound_of(R, L, k)
             row = {"L": L, "k": k, "R": R, "windows": n,
                    "bit_equal": err == 0.0, "max_abs_err": err, "ms": ms,
                    "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                    "kernel_bytes": moved, "bound_ms": bound_ms,
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations", "ops_bound_ms": ops_ms,
+                   "bound_by": bound_by,
                    "bound_share": bound_ms / ms,
                    "kernel_GBps": moved / ms / 1e6,
-                   "main_path": (L, k, R) in main_shapes}
+                   "main_path": (L, k, R) in main_shapes + hammer_shapes,
+                   "hammer": strand}
             rows.append(row)
             log(f"[kernel] L={L} k={k} R={R} max_abs_err={err} kernel "
                 f"{ms:.3f} ms ({row['kernel_GBps']:.0f} GB/s; bound "
                 f"{bound_ms:.3f} ms, {row['bound_share']:.0%} of it) "
                 f"wrapper {wrapper_ms:.3f} ms plain {plain_ms:.3f} ms")
+            if strand:
+                s_bound, s_by, s_moved = bound_of(R, L, k, strand=True)
+                row.update(strand_ms=strand_ms, strand_bound_ms=s_bound,
+                           strand_bytes=s_moved, strand_bound_by=s_by,
+                           strand_plain_ms=cuda_ms(
+                               lambda: kmer.extract_canonical_keys(
+                                   c, ln, k), 3))
+                log(f"[kernel] strand entry L={L} k={k} R={R}: "
+                    f"{strand_ms:.3f} ms with the strand byte "
+                    f"({s_moved / 1e6:.0f} MB, bound {s_bound:.3f} ms, "
+                    f"{s_bound / strand_ms:.0%} of it), {ms:.3f} ms without "
+                    f"({moved / 1e6:.0f} MB, bound {bound_ms:.3f} ms); plain "
+                    f"{row['strand_plain_ms']:.3f} ms")
             if err != 0.0:
                 raise AssertionError(f"kernel != plain at L={L} k={k}")
             torch.cuda.empty_cache()
@@ -340,7 +440,7 @@ def canonical_contigs(contigs):
 
 def phase_gpu_vs_cpu(device) -> dict:
     from spades_for_blackbird_tpu_torch.pipeline import assemble
-    _, codes, lengths = simulate_reads(20_000, 40.0, 100, seed=5)
+    _, codes, lengths, quals = simulate_reads(20_000, 40.0, 100, seed=5)
     t0 = time.perf_counter()
     gpu = assemble.assemble_single_k(codes, lengths, 21, device=device)
     t_gpu = time.perf_counter() - t0
@@ -359,9 +459,104 @@ def phase_gpu_vs_cpu(device) -> dict:
         f"gpu {t_gpu:.2f} s, cpu {t_cpu:.2f} s")
     windows = contig_windows_vs_plain(
         device, [s for s, _ in gpu.contigs], codes.shape[1])
-    ladder = cli_gpu_vs_cpu(codes, lengths)
+    hammer = hammer_gpu_vs_cpu(device, codes, lengths, quals)
+    ladder = cli_gpu_vs_cpu(codes, lengths, quals)
     return {"contigs": len(a), "gpu_s": t_gpu, "cpu_s": t_cpu,
-            "contig_windows": windows, "cli_ladder": ladder}
+            "contig_windows": windows, "hammer": hammer, "cli": ladder}
+
+
+def hammer_gpu_vs_cpu(device, codes, lengths, quals) -> dict:
+    """``correct_reads`` with qualities on the card and on the CPU."""
+    import torch
+    from spades_for_blackbird_tpu_torch.hammer import correct
+    out, walls = {}, {}
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        fixed, stats = correct.correct_reads(
+            torch.from_numpy(codes), torch.from_numpy(lengths),
+            quals=torch.from_numpy(quals), device=dev)
+        out[dev.type] = (fixed.cpu().numpy(), stats)
+        walls[dev.type] = time.perf_counter() - t0
+    (a, sa), (b, sb) = out["cuda"], out["cpu"]
+    if sa != sb or not np.array_equal(a, b):
+        raise AssertionError(f"correct_reads differs between card and CPU: "
+                             f"{int((a != b).sum())} bases, stats {sa} vs "
+                             f"{sb}")
+    log(f"[gpu-vs-cpu] 20 kb correct_reads: identical corrected reads, "
+        f"stats {sa}; card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
+    return {"stats": sa, "gpu_s": walls["cuda"], "cpu_s": walls["cpu"]}
+
+
+def corrected_reads_file(out: str) -> bytes:
+    import gzip
+    with gzip.open(os.path.join(out, "corrected", "corrected.fastq.gz")) as f:
+        return f.read()
+
+
+def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
+    """The command line on the card and on the CPU: the ladder alone,
+    the default command (correction, then the ladder) and IonHammer's
+    correction alone."""
+    from spades_for_blackbird_tpu_torch import cli
+    from spades_for_blackbird_tpu_torch.io import fastq
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    record = {}
+    try:
+        plain = os.path.join(tmp, "reads.fastq")
+        fastq.write_reads_fastq(plain, codes, lengths)
+        with_quals = os.path.join(tmp, "reads_q.fastq")
+        write_fastq(with_quals, codes, quals)
+        runs = (("ladder", plain, ["-k", "21,33,55", "--only-assembler"]),
+                ("default", with_quals, ["-k", "21,33,55"]),
+                ("ion", with_quals, ["--iontorrent",
+                                     "--only-error-correction"]))
+        for name, fq, extra in runs:
+            walls = {}
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                rc = cli.main(["-s", fq, "-o", os.path.join(tmp, name, dev),
+                               "--device", dev] + extra)
+                walls[dev] = time.perf_counter() - t0
+                if rc != 0:
+                    raise AssertionError(f"cli.main {name} --device {dev} "
+                                         f"returned {rc}")
+            card, cpu = (os.path.join(tmp, name, d) for d in ("cuda", "cpu"))
+            if name == "ion":
+                if corrected_reads_file(card) != corrected_reads_file(cpu):
+                    raise AssertionError("--iontorrent corrected reads "
+                                         "differ between card and CPU")
+                record[name] = {"gpu_s": walls["cuda"], "cpu_s": walls["cpu"]}
+                log(f"[gpu-vs-cpu] 20 kb --iontorrent "
+                    f"--only-error-correction: identical corrected reads; "
+                    f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
+                continue
+            a, b = (read_fasta(os.path.join(d, "contigs.fasta"))
+                    for d in (card, cpu))
+            if [s for s, _ in a] != [s for s, _ in b]:
+                raise AssertionError(f"CLI {name} contigs differ between "
+                                     f"card and CPU")
+            if not np.allclose([c for _, c in a], [c for _, c in b],
+                               rtol=COV_RTOL, atol=1e-6):
+                raise AssertionError(f"CLI {name} contig coverages differ")
+            (sa, la), (sb, lb) = (gfa_records(os.path.join(
+                d, "assembly_graph_with_scaffolds.gfa")) for d in (card, cpu))
+            if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb:
+                raise AssertionError(f"CLI {name} GFA segments or links "
+                                     f"differ between card and CPU")
+            if not np.allclose([x[2] for x in sa], [x[2] for x in sb],
+                               rtol=COV_RTOL, atol=1e-6):
+                raise AssertionError(f"CLI {name} GFA segment coverages "
+                                     f"differ")
+            record[name] = {"contigs": len(a), "segments": len(sa),
+                            "links": len(la), "gpu_s": walls["cuda"],
+                            "cpu_s": walls["cpu"]}
+            log(f"[gpu-vs-cpu] 20 kb {name} through the CLI "
+                f"({' '.join(extra)}): {len(a)} identical contigs, "
+                f"{len(sa)} identical segments, {len(la)} identical links; "
+                f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
 
 
 def contig_windows_vs_plain(device, contigs: list[str], width: int) -> list:
@@ -423,48 +618,6 @@ def gfa_records(path: str):
     return segs, links
 
 
-def cli_gpu_vs_cpu(codes, lengths) -> dict:
-    """The ladder through the command line on the card and on the CPU."""
-    from spades_for_blackbird_tpu_torch import cli
-    from spades_for_blackbird_tpu_torch.io import fastq
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        fq = os.path.join(tmp, "reads.fastq")
-        fastq.write_reads_fastq(fq, codes, lengths)
-        walls = {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            rc = cli.main(["-s", fq, "-o", os.path.join(tmp, dev), "-k",
-                           "21,33,55", "--only-assembler", "--device", dev])
-            walls[dev] = time.perf_counter() - t0
-            if rc != 0:
-                raise AssertionError(f"cli.main --device {dev} returned {rc}")
-        a, b = (read_fasta(os.path.join(tmp, d, "contigs.fasta"))
-                for d in ("cuda", "cpu"))
-        if [s for s, _ in a] != [s for s, _ in b]:
-            raise AssertionError("CLI contigs differ between card and CPU")
-        if not np.allclose([c for _, c in a], [c for _, c in b],
-                           rtol=COV_RTOL, atol=1e-6):
-            raise AssertionError("CLI contig coverages differ")
-        (sa, la), (sb, lb) = (gfa_records(os.path.join(
-            tmp, d, "assembly_graph_with_scaffolds.gfa"))
-            for d in ("cuda", "cpu"))
-        if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb:
-            raise AssertionError("GFA segments or links differ between "
-                                 "card and CPU")
-        if not np.allclose([x[2] for x in sa], [x[2] for x in sb],
-                           rtol=COV_RTOL, atol=1e-6):
-            raise AssertionError("GFA segment coverages differ")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[gpu-vs-cpu] 20 kb ladder 21,33,55 through the CLI: {len(a)} "
-        f"identical contigs, {len(sa)} identical segments, {len(la)} "
-        f"identical links; card {walls['cuda']:.2f} s, cpu "
-        f"{walls['cpu']:.2f} s")
-    return {"contigs": len(a), "segments": len(sa), "links": len(la),
-            "gpu_s": walls["cuda"], "cpu_s": walls["cpu"]}
-
-
 def phase_full(device) -> tuple[dict, tuple]:
     """The full-size assembly; returns its record, and the genome and its
     reads."""
@@ -474,8 +627,8 @@ def phase_full(device) -> tuple[dict, tuple]:
     from spades_for_blackbird_tpu_torch.utils import assess, timetrace
 
     t0 = time.perf_counter()
-    genome, codes, lengths = simulate_reads(FULL_GENOME, FULL_COVERAGE,
-                                            FULL_READ_LEN, seed=7)
+    genome, codes, lengths, quals = simulate_reads(
+        FULL_GENOME, FULL_COVERAGE, FULL_READ_LEN, seed=7)
     sim_s = time.perf_counter() - t0
     log(f"[full] simulated {FULL_GENOME} bp, {codes.shape[0]} reads in "
         f"{sim_s:.1f} s")
@@ -491,9 +644,7 @@ def phase_full(device) -> tuple[dict, tuple]:
     launches = kernel.launches
     timetrace.disable()
     peak = torch.cuda.max_memory_allocated(device)
-    scopes: dict[str, float] = {}
-    for ev in timetrace.events():
-        scopes[ev["name"]] = scopes.get(ev["name"], 0.0) + ev["dur"] / 1e6
+    scopes = scope_seconds(timetrace.events())
     for name, sec in sorted(scopes.items(), key=lambda kv: -kv[1]):
         log(f"[full] scope {name}: {sec:.3f} s")
     report = assess.assess([s for s, _ in res.contigs], genome)
@@ -514,7 +665,7 @@ def phase_full(device) -> tuple[dict, tuple]:
             "peak_bytes": int(peak), "launches": launches,
             "scopes_s": scopes, "stats": res.stats,
             "contig_windows": windows,
-            "assess": report.to_dict()}, (genome, codes, lengths)
+            "assess": report.to_dict()}, (genome, codes, lengths, quals)
 
 
 def busy_union_us(spans: list[tuple[float, float]]) -> float:
@@ -599,19 +750,24 @@ def phase_profile(device, codes, lengths, host_profile: bool) -> dict:
     return record
 
 
-def trace_seconds(path: str) -> dict[str, float]:
-    """Seconds by span name of a time trace the command line wrote."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+def scope_seconds(events) -> dict[str, float]:
+    """Seconds by span name of time-trace events."""
     out: dict[str, float] = {}
     for ev in events:
         out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur"] / 1e6
     return out
 
 
-def phase_ladder(device, genome, codes, lengths, single_k: dict) -> dict:
-    """The default ladder at full size, from a FASTQ file to contigs and
-    graph files, through the command line."""
+def trace_seconds(path: str) -> dict[str, float]:
+    """Seconds by span name of a time trace the command line wrote."""
+    with open(path) as f:
+        return scope_seconds(json.load(f)["traceEvents"])
+
+
+def phase_ladder(device) -> dict:
+    """The default ladder with default checkpoints on the 1 Mb simulation,
+    from a FASTQ file to contigs and graph files, through the command
+    line."""
     import torch
     from spades_for_blackbird_tpu_torch import cli, native
     from spades_for_blackbird_tpu_torch.io import fastq, gfa
@@ -620,6 +776,8 @@ def phase_ladder(device, genome, codes, lengths, single_k: dict) -> dict:
     from spades_for_blackbird_tpu_torch.utils import assess
 
     kernel = kmer_cuda.extract_sort_keys
+    genome, codes, lengths, _ = simulate_reads(
+        LADDER_GENOME, FULL_COVERAGE, FULL_READ_LEN, seed=7)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         fq = os.path.join(tmp, "reads.fastq")
@@ -671,9 +829,8 @@ def phase_ladder(device, genome, codes, lengths, single_k: dict) -> dict:
         contigs = read_fasta(os.path.join(out, "contigs.fasta"))
         report = assess.assess([s for s, _ in contigs], genome)
         log(f"[ladder] contigs: {json.dumps(report.to_dict())}")
-        log(f"[ladder] ladder 21,33,55: {report.n_contigs} contigs, NG50 "
-            f"{report.ng50}; single K={FULL_K}: "
-            f"{single_k['n_contigs']} contigs, NG50 {single_k['ng50']}")
+        log(f"[ladder] {LADDER_GENOME} bp, ladder 21,33,55: "
+            f"{report.n_contigs} contigs, NG50 {report.ng50}")
         if report.genome_fraction < 0.97 or report.misassemblies != 0:
             raise AssertionError(
                 f"quality bar missed: genome fraction "
@@ -712,13 +869,183 @@ def phase_ladder(device, genome, codes, lengths, single_k: dict) -> dict:
             f"redone, {continue_s:.2f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"wall_s": wall, "fastq_write_s": write_s, "reader": reader,
+    return {"genome_size": LADDER_GENOME, "reads": int(codes.shape[0]),
+            "wall_s": wall, "fastq_write_s": write_s, "reader": reader,
             "peak_bytes": int(peak), "launches": launches,
             "stages_s": stages, "spans_s": spans,
             "checkpoint_save_s": spans.get("checkpoint_save", 0.0),
             "wall_less_saves_s": less_saves, "continue_s": continue_s,
             "segments": len(segments), "links": len(links),
             "assess": report.to_dict()}
+
+
+@contextlib.contextmanager
+def plain_extraction_refused():
+    """While open, the plain extraction functions raise when handed a
+    tensor on the card: the main path must take the kernel there."""
+    from spades_for_blackbird_tpu_torch.ops import kmer
+    names = ("extract_kmers", "extract_canonical_kmers", "extract_sort_keys",
+             "extract_canonical_keys")
+    saved = {name: getattr(kmer, name) for name in names}
+
+    def guarded(name, fn):
+        def call(codes, *args, **kwargs):
+            if codes.is_cuda:
+                raise AssertionError(f"plain ops/kmer.py::{name} was called "
+                                     f"with a tensor on the card")
+            return fn(codes, *args, **kwargs)
+        return call
+    for name, fn in saved.items():
+        setattr(kmer, name, guarded(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kmer, name, fn)
+
+
+def phase_hammer(device, genome, codes, lengths, quals) -> dict:
+    """The error corrector on the 4.6 Mb simulation: ``correct_reads`` on
+    the card against the true reads, then the default command."""
+    import torch
+    from spades_for_blackbird_tpu_torch import cli
+    from spades_for_blackbird_tpu_torch.hammer import correct
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.utils import assess, timetrace
+
+    kernel = kmer_cuda.extract_sort_keys
+    t0 = time.perf_counter()
+    _, truth, _, _ = simulate_reads(FULL_GENOME, FULL_COVERAGE,
+                                    FULL_READ_LEN, seed=7, error_rate=0.0)
+    log(f"[hammer] simulated the true reads in "
+        f"{time.perf_counter() - t0:.1f} s")
+    wrong = codes != truth
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        with plain_extraction_refused():
+            # (a) correct_reads on the card
+            c = torch.from_numpy(codes).to(device)
+            ln = torch.from_numpy(lengths).to(device)
+            q = torch.from_numpy(quals).to(device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            before_mem = torch.cuda.memory_allocated(device)
+            timetrace.enable()
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            fixed, stats = correct.correct_reads(c, ln, quals=q,
+                                                 device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel.launches
+            timetrace.disable()
+            peak = torch.cuda.max_memory_allocated(device) - before_mem
+            scopes = scope_seconds(timetrace.events())
+            fixed = fixed.cpu().numpy()
+            # the same call again under torch.profiler: where the card's
+            # time goes, and its busy share of the wall
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                correct.correct_reads(c, ln, quals=q, device=device)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            rows, device_sum, busy = device_table(prof)
+            profile = {"profiled_wall_s": prof_wall,
+                       "device_busy_union_s": busy,
+                       "device_busy_share": busy / prof_wall if rows else None,
+                       "device_summed_s": device_sum,
+                       "device_kernels": rows[:PROFILE_TOP_KERNELS]}
+            del c, ln, q, prof
+            torch.cuda.empty_cache()
+            log(f"[hammer] correct_reads under torch.profiler: "
+                f"{prof_wall:.3f} s, device busy union {busy:.3f} s"
+                + (f" = {busy / prof_wall:.1%}" if rows else
+                   " (no device span seen: not measured)"))
+            for name, sec, n in rows[:10]:
+                log(f"[hammer] profile {sec:8.4f} s {n:7d}x  {name[:120]}")
+            after = fixed != truth
+            counts = {"wrong_before": int(wrong.sum()),
+                      "wrong_after": int(after.sum()),
+                      "made_wrong": int((after & ~wrong).sum()),
+                      "fixed": int((wrong & ~after).sum())}
+            log(f"[hammer] correct_reads on {codes.shape[0]} reads: "
+                f"{wall:.2f} s, peak device memory {peak / 2**30:.2f} GiB "
+                f"above the reads, kernel launches {launches}, stats {stats}")
+            for name in HAMMER_SCOPES:
+                log(f"[hammer] scope {name} (both iterations): "
+                    f"{scopes.get(name, 0.0):.3f} s")
+            log(f"[hammer] bases wrong before {counts['wrong_before']}, "
+                f"after {counts['wrong_after']} "
+                f"({counts['wrong_after'] / max(counts['wrong_before'], 1):.1%}"
+                f" left), fixed {counts['fixed']}, made wrong "
+                f"{counts['made_wrong']}")
+            if launches <= 0:
+                raise AssertionError("the corrector never launched the "
+                                     "kernel")
+            if counts["wrong_after"] * 4 > counts["wrong_before"]:
+                raise AssertionError("more than a quarter of the wrong "
+                                     "bases are left")
+
+            # (b) the default command on the reads with their qualities
+            fq = os.path.join(tmp, "reads.fastq")
+            t0 = time.perf_counter()
+            write_fastq(fq, codes, quals)
+            write_s = time.perf_counter() - t0
+            out = os.path.join(tmp, "out")
+            argv = ["-s", fq, "-o", out, "--checkpoints", "none",
+                    "--trace-time"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            cli_wall = time.perf_counter() - t0
+            cli_launches = kernel.launches
+            cli_peak = torch.cuda.max_memory_allocated(device)
+        if rc != 0:
+            raise AssertionError(f"cli.main returned {rc}")
+        spans = trace_seconds(os.path.join(out, "spades_time_trace.json"))
+        stages = {name: spans.get(f"stage:{name}", 0.0) for name in (
+            "read_conversion", "error_correction", "k21", "k33", "k55",
+            "repeat_resolution", "contig_output")}
+        log(f"[hammer] wrote {os.path.getsize(fq) / 1e9:.2f} GB of FASTQ "
+            f"with qualities in {write_s:.1f} s")
+        log(f"[hammer] cli.main {' '.join(argv[2:])}: {cli_wall:.2f} s, peak "
+            f"device memory {cli_peak / 2**30:.2f} GiB, kernel launches "
+            f"{cli_launches}")
+        for name, sec in stages.items():
+            log(f"[hammer] stage {name}: {sec:.3f} s")
+        for name in HAMMER_SCOPES:
+            log(f"[hammer] cli scope {name}: {spans.get(name, 0.0):.3f} s")
+        with open(os.path.join(out, "spades.log")) as f:
+            logged = [ln.split("correction: ", 1)[1] for ln in f
+                      if "correction: {" in ln]
+        cli_stats = ast.literal_eval(logged[-1]) if logged else None
+        log(f"[hammer] the command line's correction stats: {cli_stats}")
+        if cli_stats != stats:
+            raise AssertionError(f"the default command corrected otherwise: "
+                                 f"{cli_stats} vs {stats}")
+        contigs = read_fasta(os.path.join(out, "contigs.fasta"))
+        report = assess.assess([s for s, _ in contigs], genome)
+        log(f"[hammer] contigs: {json.dumps(report.to_dict())}")
+        if report.genome_fraction < 0.97 or report.misassemblies != 0:
+            raise AssertionError(
+                f"quality bar missed: genome fraction "
+                f"{report.genome_fraction:.4f} (>= 0.97), misassemblies "
+                f"{report.misassemblies} (== 0)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"reads": int(codes.shape[0]), "wall_s": wall, "stats": stats,
+            "launches": launches, "peak_bytes": int(peak),
+            "scopes_s": scopes, **counts, "profile": profile,
+            "fastq_write_s": write_s,
+            "cli_wall_s": cli_wall, "cli_launches": cli_launches,
+            "cli_peak_bytes": int(cli_peak), "cli_stages_s": stages,
+            "cli_spans_s": spans, "assess": report.to_dict()}
 
 
 def main(argv=None) -> int:
@@ -749,11 +1076,12 @@ def main(argv=None) -> int:
         record["build"] = phase_build()
         record["kernel_vs_plain"] = phase_kernel_vs_plain(device)
         record["gpu_vs_cpu"] = phase_gpu_vs_cpu(device)
-        record["full"], (genome, codes, lengths) = phase_full(device)
+        record["full"], (genome, codes, lengths, quals) = phase_full(device)
         record["profile"] = phase_profile(device, codes, lengths,
                                           args.host_profile)
-        record["ladder"] = phase_ladder(device, genome, codes, lengths,
-                                        record["full"]["assess"])
+        record["ladder"] = phase_ladder(device)
+        record["hammer"] = phase_hammer(device, genome, codes, lengths,
+                                        quals)
     except Exception:  # any failed phase fails the smoke
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -771,17 +1099,23 @@ def main(argv=None) -> int:
     compared = (rows + record["kernel_vs_plain"]["ragged"]
                 + record["gpu_vs_cpu"]["contig_windows"]
                 + record["full"]["contig_windows"])
+    hammer = record["hammer"]
+    launches = (record["full"]["launches"] + record["ladder"]["launches"]
+                + hammer["launches"] + hammer["cli_launches"])
     log(f"kernel launches on the main paths: single K "
         f"{record['full']['launches']}, ladder through the CLI "
-        f"{record['ladder']['launches']}")
+        f"{record['ladder']['launches']}, correct_reads "
+        f"{hammer['launches']}, the default command "
+        f"{hammer['cli_launches']}")
+    strand_row = next(r for r in rows if r.get("strand_ms") is not None
+                      and r["R"] == hammer["reads"])
     log(card)
     print(json.dumps({"kernels": [{
         "name": "kmer_extract",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
-        "launches": (record["full"]["launches"]
-                     + record["ladder"]["launches"]),
+        "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in compared),
         "ms": main_row["ms"],
         "wrapper_ms": main_row["wrapper_ms"],
@@ -795,6 +1129,9 @@ def main(argv=None) -> int:
             {key: r[key] for key in ("R", "L", "k", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by")}
             for r in rows if r["main_path"]],
+        "strand_entry": {key: strand_row[key] for key in (
+            "R", "L", "k", "ms", "bound_ms", "strand_ms", "strand_bound_ms",
+            "strand_plain_ms", "strand_bound_by")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

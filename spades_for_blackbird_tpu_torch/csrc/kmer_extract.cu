@@ -12,10 +12,18 @@
 // invalid window's keys are the fused all-ones sentinel and nothing else is
 // written; with k % 16 == 0 (all-ones is then a real k-mer) the words are
 // kept, N read as A, and one validity byte a window is written beside them.
+// On request (a non-null `fwd`) one more byte a window says which strand is
+// the canonical one: 1 where the forward k-mer is, ties (palindromes)
+// included, as dna.canonicalize_kmers decides. It is decided on the window's
+// bases as the row holds them (codes >= 4 read as code & 3), so it is defined,
+// and equal to the plain version's, on every window, the invalid ones too.
+// The error corrector's passes need it to orient a window's bases and
+// qualities; the counting path passes null and stores nothing more.
 //
 // Bound: device memory bandwidth. The kernel must read 1 byte a base and
-// 4 bytes a read and write 8*G bytes a window; at R = 1,048,576, L = 100,
-// k = 56 that is 104.9 + 4.2 + 755.0 = 864 MB, 0.26 ms at 3.35 TB/s. The
+// 4 bytes a read and write 8*G bytes a window (one more with `fwd`); at
+// R = 1,048,576, L = 100, k = 56 that is 104.9 + 4.2 + 755.0 = 864 MB, 0.26 ms
+// at 3.35 TB/s. The
 // instruction count must stay far enough below that for the stores to be the
 // limit, which is what the design is for:
 //   - Pack once, window by funnel shift. A block packs each read of its tile
@@ -135,7 +143,7 @@ kmer_extract_kernel(const uint8_t* __restrict__ codes,
                     const int32_t* __restrict__ lengths, int R, int L, int k,
                     int tile_reads, int n_tiles, int bulk_aligned,
                     int stage_bytes, int Q, unsigned long long* __restrict__ keys,
-                    uint8_t* __restrict__ valid) {
+                    uint8_t* __restrict__ valid, uint8_t* __restrict__ fwd) {
   constexpr int G = (W + 1) / 2;
   const int P = L - k + 1;
   const int BW = Q / 2;  // 32-bit words of bad bits a read
@@ -324,6 +332,7 @@ kmer_extract_kernel(const uint8_t* __restrict__ codes,
         __stcs(keys + g * n_windows + idx, key);
       }
       if (!fold) valid[idx] = ok;
+      if (fwd != nullptr) fwd[idx] = !rc_lt;
       p += win_dp;
       r += win_dr;
       if (p >= P) {
@@ -338,7 +347,7 @@ kmer_extract_kernel(const uint8_t* __restrict__ codes,
 template <int W>
 cudaError_t launch(const uint8_t* codes, const int32_t* lengths, int R, int L,
                    int k, unsigned long long* keys, uint8_t* valid,
-                   cudaStream_t stream) {
+                   uint8_t* fwd, cudaStream_t stream) {
   // reads a tile: a multiple of `unit`, so that every full tile starts and
   // ends on a 16-byte boundary of the codes
   int g = L & 15;  // gcd(L, 16) is the lowest set bit of L, capped at 16
@@ -368,7 +377,7 @@ cudaError_t launch(const uint8_t* codes, const int32_t* lengths, int R, int L,
   const int blocks = min(n_tiles, sms * blocks_per_sm);
   kernel<<<blocks, kThreads, smem, stream>>>(codes, lengths, R, L, k,
                                              tile_reads, n_tiles, bulk_aligned,
-                                             stage_bytes, Q, keys, valid);
+                                             stage_bytes, Q, keys, valid, fwd);
   return cudaGetLastError();
 }
 
@@ -377,29 +386,31 @@ cudaError_t launch(const uint8_t* codes, const int32_t* lengths, int R, int L,
 // Plain C entry point (loaded with ctypes). codes: (R, L) uint8, row-major;
 // lengths: (R,) int32; keys: (G, R*P) int64 with G = ceil(ceil(k/16)/2) and
 // P = L - k + 1; valid: (R*P,) uint8, or null when k % 16 != 0 (invalid
-// windows are then written as the sentinel). The caller checks R >= 1,
+// windows are then written as the sentinel); fwd: (R*P,) uint8, 1 where the
+// forward k-mer is canonical, or null for none. The caller checks R >= 1,
 // 1 <= k <= min(L, 128), L <= 4096 and R*L < 2^31. Returns the first CUDA
 // error of the launch, 0 for none.
 extern "C" int sfb_kmer_extract(const void* codes, const void* lengths,
                                 int R, int L, int k, void* keys, void* valid,
-                                void* stream) {
+                                void* fwd, void* stream) {
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* len = static_cast<const int32_t*>(lengths);
   auto* o = static_cast<unsigned long long*>(keys);
   auto* v = static_cast<uint8_t*>(valid);
+  auto* f = static_cast<uint8_t*>(fwd);
   auto st = static_cast<cudaStream_t>(stream);
   if ((v == nullptr) != (k % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch ((k + 15) / 16) {
-    case 1: err = launch<1>(c, len, R, L, k, o, v, st); break;
-    case 2: err = launch<2>(c, len, R, L, k, o, v, st); break;
-    case 3: err = launch<3>(c, len, R, L, k, o, v, st); break;
-    case 4: err = launch<4>(c, len, R, L, k, o, v, st); break;
-    case 5: err = launch<5>(c, len, R, L, k, o, v, st); break;
-    case 6: err = launch<6>(c, len, R, L, k, o, v, st); break;
-    case 7: err = launch<7>(c, len, R, L, k, o, v, st); break;
-    case 8: err = launch<8>(c, len, R, L, k, o, v, st); break;
+    case 1: err = launch<1>(c, len, R, L, k, o, v, f, st); break;
+    case 2: err = launch<2>(c, len, R, L, k, o, v, f, st); break;
+    case 3: err = launch<3>(c, len, R, L, k, o, v, f, st); break;
+    case 4: err = launch<4>(c, len, R, L, k, o, v, f, st); break;
+    case 5: err = launch<5>(c, len, R, L, k, o, v, f, st); break;
+    case 6: err = launch<6>(c, len, R, L, k, o, v, f, st); break;
+    case 7: err = launch<7>(c, len, R, L, k, o, v, f, st); break;
+    case 8: err = launch<8>(c, len, R, L, k, o, v, f, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

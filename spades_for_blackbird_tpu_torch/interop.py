@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from .graph.graph import Graph
+from .hammer.bayes import KmerQualStats, SubClusters
+from .hammer.cluster import HammerClusters
 from .kmers.counter import KmerTable
 from .kmers.extension import VertexTable
 
@@ -111,3 +113,52 @@ def graph_to_numpy(g: Graph) -> dict:
            for name in GRAPH_FIELDS if name != "num_edges"}
     out["num_edges"] = int(g.num_edges)
     return out
+
+
+def hammer_clusters_from_numpy(rep, is_center, solid, center_of,
+                               device="cpu") -> HammerClusters:
+    """The JAX package's ``HammerClusters`` fields (int32 rows, bool
+    flags) -> the port's (int64 rows)."""
+    return HammerClusters(rep=_as(rep, np.int64, device),
+                          is_center=_as(is_center, np.bool_, device),
+                          solid=_as(solid, np.bool_, device),
+                          center_of=_as(center_of, np.int64, device))
+
+
+def hammer_clusters_to_numpy(c: HammerClusters) -> dict:
+    """HammerClusters -> {field: numpy array}, rows as the JAX package's
+    int32."""
+    return {"rep": c.rep.cpu().numpy().astype(np.int32),
+            "is_center": c.is_center.cpu().numpy(),
+            "solid": c.solid.cpu().numpy(),
+            "center_of": c.center_of.cpu().numpy().astype(np.int32)}
+
+
+def qual_stats_from_numpy(total_lq, qual_sum, device="cpu") -> KmerQualStats:
+    """``KmerQualStats`` fields (float32 (N,) and (N, k)) -> the port's."""
+    return KmerQualStats(total_lq=_as(total_lq, np.float32, device),
+                         qual_sum=_as(qual_sum, np.float32, device))
+
+
+def qual_stats_to_numpy(s: KmerQualStats) -> dict:
+    return {"total_lq": s.total_lq.cpu().numpy(),
+            "qual_sum": s.qual_sum.cpu().numpy()}
+
+
+def subclusters_from_numpy(solid, is_center, center_bases, rep,
+                           device="cpu") -> SubClusters:
+    """``SubClusters`` fields (bool flags, uint8 (N, k) bases, int32 rep)
+    -> the port's (int64 rep)."""
+    return SubClusters(solid=_as(solid, np.bool_, device),
+                       is_center=_as(is_center, np.bool_, device),
+                       center_bases=_as(center_bases, np.uint8, device),
+                       rep=_as(rep, np.int64, device))
+
+
+def subclusters_to_numpy(s: SubClusters) -> dict:
+    """SubClusters -> {field: numpy array}, rep as the JAX package's
+    int32."""
+    return {"solid": s.solid.cpu().numpy(),
+            "is_center": s.is_center.cpu().numpy(),
+            "center_bases": s.center_bases.cpu().numpy(),
+            "rep": s.rep.cpu().numpy().astype(np.int32)}

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import chunking, dna, kmer_cuda, segments
+from ..utils import membudget
 
 # reads per counting chunk when the reads lie on the CPU
 CPU_CHUNK_READS = 1 << 20
@@ -47,6 +48,34 @@ def count_kmers(codes: torch.Tensor, lengths: torch.Tensor, k: int
     uniq, counts, num = segments.count_sorted_keys(
         list(keys.unbind(0)), dna.words_per_kmer(k), valid)
     return KmerTable(uniq, counts, num)
+
+
+def count_kmers_quality(codes: torch.Tensor, lengths: torch.Tensor,
+                        quals: torch.Tensor, k: int):
+    """Count canonical k-mers with per-k-mer quality mass.
+
+    The BayesHammer counting statistic (projects/hammer kmer_stat.hpp:
+    each k-mer instance carries its bases' error probabilities): a
+    k-mer's quality weight is the product over its bases of
+    (1 - 10^(-phred/10)), summed over instances, in float32 as in the
+    JAX package. ``quals`` are raw phred+33 bytes shaped like ``codes``.
+
+    Returns (KmerTable with integer counts, qweight (N,) float32), N the
+    number of windows.
+    """
+    R, L = codes.shape
+    P = L - k + 1
+    keys, valid = kmer_cuda.extract_sort_keys(
+        codes.contiguous(), lengths.to(torch.int32).contiguous(), k)
+    q = torch.clamp(quals.to(torch.float32) - 33.0, min=0.0)
+    perr = torch.clamp(torch.pow(10.0, -q / 10.0), max=0.75)
+    cs0 = torch.nn.functional.pad(torch.cumsum(torch.log1p(-perr), 1),
+                                  (1, 0))
+    w = torch.exp(cs0[:, k:P + k] - cs0[:, :P])          # (R, P)
+    uniq, counts, num, perm, gid = segments.group_sorted_keys(
+        list(keys.unbind(0)), dna.words_per_kmer(k), valid)
+    qweight = segments.drop_scatter(R * P, gid, w.reshape(-1)[perm])
+    return KmerTable(uniq, counts, num), qweight
 
 
 def filter_min_count(table: KmerTable, min_count: int) -> KmerTable:
@@ -85,14 +114,10 @@ def chunk_reads_for(read_len: int, k: int, device: torch.device) -> int:
     8 on an H100, each within 4 bytes under this). On the CPU it is
     ``CPU_CHUNK_READS``.
     """
-    if device.type != "cuda":
-        return CPU_CHUNK_READS
     words = dna.words_per_kmer(k)
     per_read = max(read_len - k + 1, 1) * (16 * ((words + 1) // 2)
                                            + 8 * words + 32)
-    free, _ = torch.cuda.mem_get_info(device)
-    n = max(1 << 12, min(1 << 24, free // 4 // per_read))
-    return 1 << (n.bit_length() - 1)
+    return membudget.reads_per_chunk(per_read, device, CPU_CHUNK_READS)
 
 
 def count_kmers_chunked(codes: torch.Tensor, lengths: torch.Tensor, k: int,
@@ -126,6 +151,23 @@ def merge_tables(a: KmerTable, b: KmerTable) -> KmerTable:
                        torch.arange(b.capacity, device=dev) < b.num])
     uniq, counts, num = segments.count_sorted(kmers, valid, weights)
     return KmerTable(uniq, counts.to(torch.int32), num)
+
+
+def lookup_windows(hay: list[torch.Tensor], num: torch.Tensor,
+                   codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """The table row of every k-window of a read batch, through the
+    extraction kernel's strand entry: ``hay`` is the table's fused keys
+    (``segments.fuse_words(table.kmers)``, fused once by the caller).
+    Returns (found (R, P) bool, row (R, P) int64, 0 where not found,
+    is_fwd (R, P) bool)."""
+    R, L = codes.shape
+    keys, valid, is_fwd = kmer_cuda.extract_canonical_keys(
+        codes.contiguous(), lengths.to(torch.int32).contiguous(), k)
+    row = segments.search_keys(hay, list(keys.unbind(0))).view(R, L - k + 1)
+    found = row < num
+    if valid is not None:
+        found &= valid.view(R, -1)
+    return found, torch.where(found, row, 0), is_fwd.view(R, -1)
 
 
 def lookup(table: KmerTable, queries: torch.Tensor):

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``spades_for_blackbird_tpu/ops/kmer.py``. This is
 the plain version of the CUDA extraction kernel (``ops/kmer_cuda.py``):
-the kernel's wrapper runs ``extract_sort_keys`` for tensors on the CPU,
-and ``chip_smoke.py`` holds the kernel against it on the card.
+the kernel's wrapper runs ``extract_sort_keys`` (and, for its strand
+entry, ``extract_canonical_keys``) for tensors on the CPU, and
+``chip_smoke.py`` holds the kernel against them on the card.
 """
 
 from __future__ import annotations
@@ -91,11 +92,22 @@ def extract_sort_keys(codes: torch.Tensor, lengths: torch.Tensor, k: int
     Otherwise invalid windows hold the canonical form of their bases (N
     read as A) and ``valid`` is the (R*P,) bool column.
     """
-    canon, valid, _ = extract_canonical_kmers(codes, lengths, k)
+    keys, valid, _ = extract_canonical_keys(codes, lengths, k)
+    return keys, valid
+
+
+def extract_canonical_keys(codes: torch.Tensor, lengths: torch.Tensor,
+                           k: int):
+    """``extract_sort_keys`` with the strand of every window: (keys,
+    valid, is_fwd (R*P,) bool), is_fwd True where the forward k-mer is the
+    canonical one (palindromes count as forward). The strand is decided on
+    the window's bases, N read as A, so it is defined on invalid windows
+    too."""
+    canon, valid, is_fwd = extract_canonical_kmers(codes, lengths, k)
     words = canon.reshape(-1, canon.shape[-1])
     valid = valid.reshape(-1)
     sentinel_safe = k % dna.BASES_PER_WORD != 0
     if sentinel_safe:
         words = torch.where(valid[:, None], words, dna.WORD_MASK)
     keys = torch.stack(segments.fuse_words(words))
-    return keys, (None if sentinel_safe else valid)
+    return keys, (None if sentinel_safe else valid), is_fwd.reshape(-1)

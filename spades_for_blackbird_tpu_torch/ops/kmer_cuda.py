@@ -4,7 +4,10 @@ The kernel (``csrc/kmer_extract.cu``) replaces the TPU kernel
 ``spades_for_blackbird_tpu/ops/kmer_pallas.py::_kernel``: canonical
 k-mers of every window of a read batch, written as the keys the counting
 sort sorts (``segments.fused_cols`` of the canonical words, invalid
-windows as the fused all-ones sentinel where k % 16 != 0).
+windows as the fused all-ones sentinel where k % 16 != 0). A second entry,
+``extract_canonical_keys``, also writes one strand byte a window (1 where
+the forward k-mer is the canonical one), which the error corrector's
+passes need to orient a window's bases and qualities.
 
 Design, in short (the source's note has the whole of it): a block packs
 each read of its tile once into 2-bit words in shared memory, both
@@ -16,7 +19,8 @@ neighbouring 8-byte keys. The bound is device memory: 1 byte a base and
 3.35 TB/s, at R = 1,048,576, L = 100, k = 56).
 
 The wrapper dispatches on the device of its input. A CPU tensor goes to
-the plain PyTorch version, ``ops/kmer.py::extract_sort_keys``; a CUDA
+the plain PyTorch version, ``ops/kmer.py::extract_sort_keys`` (or
+``extract_canonical_keys``); a CUDA
 tensor launches the kernel, which is built with ``nvcc`` from the
 package's own source at first use into the package's ``build/``
 directory, and loaded through ``ctypes``. There is no fallback from a
@@ -35,8 +39,7 @@ import time
 
 import torch
 
-from . import dna
-from .kmer import extract_sort_keys as plain_extract_sort_keys
+from . import dna, kmer
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "kmer_extract.cu")
@@ -68,10 +71,10 @@ class KmerExtractKernel:
     """Callable wrapper: ``(codes, lengths, k) -> (keys (G, R*P) int64,
     valid)``, the contract of ``ops/kmer.py::extract_sort_keys``:
     ``valid`` is None when k % 16 != 0 and the (R*P,) bool column
-    otherwise.
+    otherwise. ``canonical_keys`` is the entry with the strand column.
 
-    ``launches`` counts kernel launches, in ``launch`` (CPU calls do not
-    count).
+    ``launches`` counts kernel launches of both entries, in ``launch``
+    (CPU calls do not count).
     ``build_seconds`` and ``ptxas_log`` describe the last build.
     """
 
@@ -113,7 +116,7 @@ class KmerExtractKernel:
             lib.sfb_kmer_extract.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p]
             lib.sfb_error_string.restype = ctypes.c_char_p
             lib.sfb_error_string.argtypes = [ctypes.c_int]
             self._lib = lib
@@ -121,7 +124,20 @@ class KmerExtractKernel:
 
     def __call__(self, codes: torch.Tensor, lengths: torch.Tensor, k: int):
         if codes.device.type == "cpu":
-            return plain_extract_sort_keys(codes, lengths, k)
+            return kmer.extract_sort_keys(codes, lengths, k)
+        keys, valid, _ = self._run(codes, lengths, k, strand=False)
+        return keys, valid
+
+    def canonical_keys(self, codes: torch.Tensor, lengths: torch.Tensor,
+                       k: int):
+        """``(codes, lengths, k) -> (keys, valid, is_fwd (R*P,) bool)``,
+        the contract of ``ops/kmer.py::extract_canonical_keys``."""
+        if codes.device.type == "cpu":
+            return kmer.extract_canonical_keys(codes, lengths, k)
+        return self._run(codes, lengths, k, strand=True)
+
+    def _run(self, codes, lengths, k, strand: bool):
+        """Check the inputs, allocate the outputs and launch."""
         if codes.device.type != "cuda":
             raise ValueError(f"unsupported device {codes.device}")
         if codes.dtype != torch.uint8 or codes.dim() != 2:
@@ -145,16 +161,21 @@ class KmerExtractKernel:
         valid = None
         if k % dna.BASES_PER_WORD == 0:  # all-ones is a real k-mer
             valid = torch.empty(n, dtype=torch.uint8, device=codes.device)
+        fwd = (torch.empty(n, dtype=torch.uint8, device=codes.device)
+               if strand else None)
         if R:
-            self.launch(codes, lengths, k, keys, valid)
-        return keys, (None if valid is None else valid.view(torch.bool))
+            self.launch(codes, lengths, k, keys, valid, fwd)
+        return (keys, None if valid is None else valid.view(torch.bool),
+                None if fwd is None else fwd.view(torch.bool))
 
     def launch(self, codes: torch.Tensor, lengths: torch.Tensor, k: int,
-               keys: torch.Tensor, valid: torch.Tensor | None) -> None:
+               keys: torch.Tensor, valid: torch.Tensor | None,
+               fwd: torch.Tensor | None = None) -> None:
         """The bare launch on the current stream: the sort keys into
-        ``keys`` ((G, R*P) int64) and, where k % 16 == 0, validity into
-        ``valid`` ((R*P,) uint8; None otherwise). ``__call__`` checks the
-        inputs and allocates the outputs before it comes here."""
+        ``keys`` ((G, R*P) int64), where k % 16 == 0 validity into
+        ``valid`` ((R*P,) uint8; None otherwise) and, where ``fwd`` is
+        given, the strand bytes into it ((R*P,) uint8). ``_run`` checks
+        the inputs and allocates the outputs before it comes here."""
         R, L = codes.shape
         lib = self._load()
         with torch.cuda.device(codes.device):
@@ -162,7 +183,8 @@ class KmerExtractKernel:
             err = lib.sfb_kmer_extract(
                 codes.data_ptr(), lengths.data_ptr(), R, L, k,
                 keys.data_ptr(),
-                None if valid is None else valid.data_ptr(), stream)
+                None if valid is None else valid.data_ptr(),
+                None if fwd is None else fwd.data_ptr(), stream)
         if err:
             raise RuntimeError("kmer_extract launch failed: "
                                + lib.sfb_error_string(err).decode())
@@ -170,3 +192,4 @@ class KmerExtractKernel:
 
 
 extract_sort_keys = KmerExtractKernel()
+extract_canonical_keys = extract_sort_keys.canonical_keys

@@ -120,24 +120,26 @@ def unique_counts(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor,
 
 def _sort_keys(keys: list[torch.Tensor], valid: torch.Tensor | None,
                sentinels: list[int]):
-    """Fused keys sorted (invalid rows last) and their validity."""
+    """The stable permutation sorting the fused keys (invalid rows last),
+    the sorted keys and their validity."""
     if valid is None:
         perm = lexsort_perm(keys)
     else:
         perm = lexsort_perm([(~valid).to(torch.int64)] + list(keys))
     skeys = [c[perm] for c in keys]
     if valid is not None:
-        return skeys, valid[perm]
+        return perm, skeys, valid[perm]
     is_sentinel = skeys[0] == sentinels[0]
     for c, sent in zip(skeys[1:], sentinels[1:]):
         is_sentinel &= c == sent
-    return skeys, ~is_sentinel
+    return perm, skeys, ~is_sentinel
 
 
 def _encode_runs(skeys: list[torch.Tensor], svalid: torch.Tensor,
                  sentinels: list[int]):
     """Run-length encode sorted fused keys: (unique keys padded with the
-    sentinel, counts (N,) int32, number of runs)."""
+    sentinel, counts (N,) int32, number of runs, the run of each sorted
+    row (N for invalid rows))."""
     N = skeys[0].shape[0]
     dev = skeys[0].device
     differs = skeys[0][1:] != skeys[0][:-1]
@@ -154,7 +156,7 @@ def _encode_runs(skeys: list[torch.Tensor], svalid: torch.Tensor,
     counts = torch.zeros(N + 1, dtype=torch.int32, device=dev)
     counts.index_add_(0, scatter_gid,
                       torch.ones(N, dtype=torch.int32, device=dev))
-    return uniq, counts[:N], seg_start.sum()
+    return uniq, counts[:N], seg_start.sum(), scatter_gid
 
 
 def count_sorted_keys(keys: list[torch.Tensor], n_words: int,
@@ -172,9 +174,25 @@ def count_sorted_keys(keys: list[torch.Tensor], n_words: int,
     ``count_sorted`` does.
     """
     sentinels = fused_sentinels(n_words)
-    uniq, counts, num_unique = _encode_runs(
-        *_sort_keys(keys, valid, sentinels), sentinels)
+    perm, skeys, svalid = _sort_keys(keys, valid, sentinels)
+    del perm
+    uniq, counts, num_unique, gid = _encode_runs(skeys, svalid, sentinels)
+    del skeys, svalid, gid
     return unfuse_keys(uniq, n_words), counts, num_unique
+
+
+def group_sorted_keys(keys: list[torch.Tensor], n_words: int,
+                      valid: torch.Tensor | None = None):
+    """``count_sorted_keys`` that also returns what a caller needs to
+    reduce the rows' payloads by run: (uniq, counts, num_unique, perm, gid)
+    with ``perm`` the stable sort permutation and ``gid`` (N,) the run of
+    each sorted row, N for an invalid one (``drop_scatter``'s dropped
+    slot)."""
+    sentinels = fused_sentinels(n_words)
+    perm, skeys, svalid = _sort_keys(keys, valid, sentinels)
+    uniq, counts, num_unique, gid = _encode_runs(skeys, svalid, sentinels)
+    del skeys, svalid
+    return unfuse_keys(uniq, n_words), counts, num_unique, perm, gid
 
 
 def count_sorted(keys: torch.Tensor, valid: torch.Tensor,
@@ -234,27 +252,41 @@ def searchsorted_rows(haystack: torch.Tensor, needles: torch.Tensor
     Returns (M,) int64 index of the first haystack row == needle, or N if
     absent. Compares fused int64 word pairs (see ``fuse_words``).
     """
-    N = haystack.shape[0]
-    M = needles.shape[0]
-    dev = needles.device
-    hay = torch.stack(fuse_words(haystack), dim=1)
-    ndl = torch.stack(fuse_words(needles), dim=1)
-    G = hay.shape[1]
-    lo = torch.zeros(M, dtype=torch.int64, device=dev)
-    hi = torch.full((M,), N, dtype=torch.int64, device=dev)
-    # the [lo, hi) gap starts at N and halves per iteration; it must
-    # reach 0, which takes ceil(log2(N+1)) <= N.bit_length() steps --
-    # (N-1).bit_length() is one short when N is a power of two
-    n_iters = max(1, N.bit_length())
-    for _ in range(n_iters):
-        mid = (lo + hi) // 2
-        mid_rows = hay[torch.clamp(mid, max=N - 1)]
-        lt = mid_rows[:, G - 1] < ndl[:, G - 1]
-        for g in range(G - 2, -1, -1):
-            lt = (mid_rows[:, g] < ndl[:, g]) | (
-                (mid_rows[:, g] == ndl[:, g]) & lt)
-        lo = torch.where(lt, mid + 1, lo)
-        hi = torch.where(lt, hi, mid)
-    found_rows = haystack[torch.clamp(lo, max=N - 1)]
-    found = torch.all(found_rows == needles, dim=1) & (lo < N)
+    return search_keys(fuse_words(haystack), fuse_words(needles))
+
+
+def search_keys(hay: list[torch.Tensor], needles: list[torch.Tensor]
+                ) -> torch.Tensor:
+    """``searchsorted_rows`` on rows given as their ``fused_cols`` keys:
+    ``hay`` G tensors (N,) of a sorted table, which a caller that searches
+    it many times fuses once; ``needles`` G tensors (M,), as the extraction
+    kernel writes them. Returns (M,) int64: the first table row equal to
+    the needle, or N if absent. One key column is one ``torch.searchsorted``;
+    more are searched a halving round at a time. The [lo, hi) gap starts
+    at N and halves a round; it must reach 0, which takes ceil(log2(N+1))
+    <= N.bit_length() rounds ((N-1).bit_length() is one short when N is a
+    power of two)."""
+    N = hay[0].shape[0]
+    if N == 0:
+        return torch.zeros_like(needles[0])
+    if len(hay) == 1:
+        lo = torch.searchsorted(hay[0], needles[0])
+    else:
+        M = needles[0].shape[0]
+        dev = needles[0].device
+        lo = torch.zeros(M, dtype=torch.int64, device=dev)
+        hi = torch.full((M,), N, dtype=torch.int64, device=dev)
+        for _ in range(max(1, N.bit_length())):
+            mid = (lo + hi) // 2
+            safe = torch.clamp(mid, max=N - 1)
+            lt = hay[-1][safe] < needles[-1]
+            for h, n in zip(reversed(hay[:-1]), reversed(needles[:-1])):
+                hm = h[safe]
+                lt = (hm < n) | ((hm == n) & lt)
+            lo = torch.where(lt, mid + 1, lo)
+            hi = torch.where(lt, hi, mid)
+    safe = torch.clamp(lo, max=N - 1)
+    found = lo < N
+    for h, n in zip(hay, needles):
+        found &= h[safe] == n
     return torch.where(found, lo, N)

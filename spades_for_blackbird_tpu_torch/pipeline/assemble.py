@@ -29,6 +29,7 @@ from ..simplify import runner
 from ..utils import timetrace
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
+from ..utils.timetrace import device_scope as _scope
 
 _log = get_logger("Assembler")
 
@@ -39,16 +40,6 @@ class AssemblyResult:
     genomic_info: coverage_model.GenomicInfo
     stats: dict
     graph: object = None  # final simplified Graph
-
-
-@contextlib.contextmanager
-def _scope(name: str, device: torch.device, **args):
-    """timetrace scope that, while tracing is on, waits for the card at
-    its end, so the span holds the device work and not only its launch."""
-    with timetrace.scope(name, **args):
-        yield
-        if timetrace.enabled() and device.type == "cuda":
-            torch.cuda.synchronize(device)
 
 
 def _to_device(x, dtype, device) -> torch.Tensor:

@@ -6,7 +6,8 @@ ReadConversion -> [ErrorCorrection] -> one iteration stage per K
 (Construction + GenomicInfoFiller + Simplification fused) ->
 RepeatResolution -> ContigOutput.
 
-Ported so far: read conversion, the iteration stages, repeat resolution
+Ported so far: read conversion, error correction (BayesHammer, or
+IonHammer with --iontorrent), the iteration stages, repeat resolution
 without a paired library, and contig output. Every other stage of the JAX
 package's list still takes its place under its name, as a stage that
 raises ``NotImplementedError`` (``_unported``); ``cli.main`` reads their
@@ -21,6 +22,8 @@ import os
 import numpy as np
 import torch
 
+from ..hammer import correct as hammer_correct
+from ..hammer import ionhammer
 from ..io import fasta, fastg, fastq, gfa
 from ..ops import dna
 from ..utils.device import resolve_device
@@ -124,6 +127,57 @@ def make_read_conversion(pe_pairs, interlaced, singles, log, mp_pairs=(),
         ctx.read_length = int(batch.lengths.max()) if batch.num_reads else 0
         log(f"total reads: {batch.num_reads}, max length {ctx.read_length}")
     return Stage("read_conversion", run)
+
+
+def make_error_correction(log, k: int = 21, output_dir: str | None = None,
+                          write_corrected: bool = False, device=None):
+    """BayesHammer stage. ``write_corrected``: write the corrected reads
+    to corrected/corrected.fastq.gz like the reference (whose per-K
+    processes re-read them); the reads stay on the device for the stages
+    after, so the file is written only on request (--only-error-correction
+    asks for it). The qualities, host arrays, are uploaded once here.
+    ``device`` as ``correct_reads`` takes it: by default the card the
+    context's reads are on, else the first card; the CPU only on
+    request."""
+    def run(ctx: PipelineContext):
+        dev = resolve_device(device, ctx.codes)
+        quals = ctx.quals
+        if quals is not None:
+            quals = torch.from_numpy(np.ascontiguousarray(quals)).to(dev)
+        corrected, hstats = hammer_correct.correct_reads(
+            ctx.codes, ctx.lengths, k=k, quals=quals, device=dev)
+        log(f"correction: {hstats}")
+        ctx.codes = corrected
+        ctx.params["hammer"] = hstats
+        if output_dir is not None and write_corrected:
+            _write_corrected(ctx, output_dir, log)
+    return Stage("error_correction", run)
+
+
+def make_ion_error_correction(log, output_dir: str | None = None,
+                              device=None):
+    """IonTorrent homopolymer-space correction (projects/ionhammer,
+    selected by --iontorrent in spades.py options_storage.py); it writes
+    corrected/corrected.fastq.gz, as in the JAX package."""
+    def run(ctx: PipelineContext):
+        codes, lengths, stats = ionhammer.correct_reads_ion(
+            ctx.codes, ctx.lengths, device=device)
+        log(f"ionhammer: {stats}")
+        ctx.codes = codes
+        ctx.lengths = lengths
+        ctx.params["ionhammer"] = stats
+        if output_dir is not None:
+            _write_corrected(ctx, output_dir, log)
+    return Stage("error_correction", run)
+
+
+def _write_corrected(ctx: PipelineContext, output_dir: str, log) -> None:
+    cdir = os.path.join(output_dir, "corrected")
+    os.makedirs(cdir, exist_ok=True)
+    path = os.path.join(cdir, "corrected.fastq.gz")
+    fastq.write_reads_fastq(path, ctx.codes.cpu().numpy(),
+                            ctx.lengths.cpu().numpy())
+    log(f"wrote {path}")
 
 
 def make_iteration(k: int, log, min_contig_length=None, simplify_cfg=None,
@@ -236,8 +290,13 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
         mp_orientation=getattr(args, "mp_orientation", "rf"),
         device=device)]
     if not args.only_assembler and cfg.correction_enabled:
-        # BayesHammer, or ionhammer with --iontorrent
-        stages.append(_unported("error_correction", "c"))
+        if getattr(args, "iontorrent", False):
+            stages.append(make_ion_error_correction(
+                log, output_dir=args.output_dir, device=device))
+        else:
+            stages.append(make_error_correction(
+                log, output_dir=args.output_dir,
+                write_corrected=args.only_error_correction, device=device))
     if getattr(args, "assembly_graph", None):
         # LoadGraph replaces construction (load_graph.cpp:16-36)
         stages.append(_unported("load_graph", "item 11"))

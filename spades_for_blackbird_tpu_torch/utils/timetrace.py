@@ -62,6 +62,17 @@ def scope(name: str, **args):
             })
 
 
+@contextlib.contextmanager
+def device_scope(name: str, device, **args):
+    """``scope`` that, while tracing is on, waits for the card at its end,
+    so the span holds the device work and not only its launch."""
+    with scope(name, **args):
+        yield
+        if _enabled and device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(device)
+
+
 def events() -> list[dict]:
     """A copy of the events collected since ``enable``."""
     with _lock:

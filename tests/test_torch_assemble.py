@@ -135,7 +135,9 @@ for name in names:
     importlib.import_module(name)
 for name in ("cli", "native", "pipeline.stages", "pipeline.spades_stages",
              "pipeline.config", "io.fastq", "io.gfa", "io.fastg",
-             "io.read_store", "utils.membudget", "path_extend.resolver"):
+             "io.read_store", "utils.membudget", "path_extend.resolver",
+             "hammer.correct", "hammer.bayes", "hammer.cluster",
+             "hammer.ionhammer"):
     assert pkg.__name__ + "." + name in sys.modules, name
 from spades_for_blackbird_tpu_torch import cli
 from spades_for_blackbird_tpu_torch.io import fastq
@@ -155,6 +157,10 @@ assert cli.main(["-s", out + "/reads.fq", "-o", out + "/out", "-k", "21",
                  "--only-assembler", "--device", "cpu"]) == 0
 assert fastq.read_sequences(out + "/out/contigs.fasta")[1] == \
     [s for s, _ in res.contigs]
+# the default command: error correction, then the rung
+assert cli.main(["-s", out + "/reads.fq", "-o", out + "/default", "-k", "21",
+                 "--device", "cpu"]) == 0
+assert fastq.read_sequences(out + "/default/contigs.fasta")[1]
 for banned in ("jax", "spades_for_blackbird_tpu"):
     assert not any(m == banned or m.startswith(banned + ".")
                    for m in sys.modules if sys.modules[m] is not None), banned

@@ -239,14 +239,14 @@ def test_paired_input_runs_as_far_as_the_port_goes(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra,needle", [
-    ([], "error_correction"),
+    (["-1", "READS", "-2", "READS"], "gap_closing"),
     (["--only-assembler", "--careful"], "mismatch_correction"),
     (["--only-assembler", "--plasmid"], "chromosome_removal"),
     (["--only-assembler", "--rna"], "not ported"),
     (["--only-assembler", "--rnaviral"], "red_diff_mult"),
     (["--only-assembler", "--nanopore", "READS"], "hybrid_aligning"),
     (["--only-assembler", "--assembly-graph", "READS"], "load_graph"),
-    (["--only-error-correction"], "error_correction"),
+    (["--sc"], "her_relative_threshold"),
 ])
 def test_unported_requests_exit_2_before_any_work(small, tmp_path, capsys,
                                                   extra, needle,

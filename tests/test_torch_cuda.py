@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written
-k-mer extraction kernel against its plain PyTorch version, and the K
-ladder on the card against the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
+k-mer extraction kernel (both entries) against its plain PyTorch
+version, and the K ladder and the error corrector on the card against
+the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
 and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from spades_for_blackbird_tpu_torch.hammer import correct  # noqa: E402
+from spades_for_blackbird_tpu_torch.hammer import ionhammer  # noqa: E402
 from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
 from spades_for_blackbird_tpu_torch.ops import dna, kmer, kmer_cuda  # noqa: E402
 from spades_for_blackbird_tpu_torch.pipeline import assemble  # noqa: E402
@@ -171,3 +174,68 @@ def test_multi_k_card_equals_cpu(card):
     np.testing.assert_allclose([c for _, c in a], [c for _, c in b],
                                rtol=1e-4)
     assert gpu.graph.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,k", [
+    (2048, 100, 21),   # the error corrector's k
+    (2051, 100, 56),   # a ragged last tile
+    (77, 150, 128),    # with the validity column
+    (50, 33, 16), (333, 40, 5), (9, 100, 100), (3, 4096, 127),
+])
+def test_strand_entry_matches_plain_on_card(card, R, L, k):
+    codes, lengths = _reads(R + L + k + 1, R, L)
+    lengths[::5] = 0
+    for lo in (0, 1):  # aligned, and a view one row in
+        c = torch.from_numpy(codes).to(card)[lo:]
+        ln = torch.from_numpy(lengths).to(card)[lo:].contiguous()
+        kernel = kmer_cuda.KmerExtractKernel()
+        keys, valid, fwd = kernel.canonical_keys(c, ln, k)
+        ref_keys, ref_valid, ref_fwd = kmer.extract_canonical_keys(c, ln, k)
+        torch.cuda.synchronize()
+        assert kernel.launches == 1
+        assert torch.equal(keys, ref_keys)
+        assert (valid is None) == (ref_valid is None)
+        if valid is not None:
+            assert torch.equal(valid, ref_valid)
+        # defined on every window, the invalid ones too
+        assert fwd.dtype == torch.bool and torch.equal(fwd, ref_fwd)
+
+
+def _reads_with_quals(size, seed):
+    genome = simulate.random_genome(size, seed=seed, repeats=[(400, 2)])
+    r1, q1, r2, q2 = simulate.simulate_paired_reads(
+        genome, size // 5, read_len=100, error_rate=0.003, seed=seed + 1)
+    codes, lengths = dna.encode_reads(r1 + r2)
+    quals = np.frombuffer("".join(q1 + q2).encode(), np.uint8).reshape(
+        codes.shape).copy()
+    return codes, lengths, quals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_quals", [True, False])
+def test_correct_reads_card_equals_cpu(card, with_quals):
+    codes, lengths, quals = _reads_with_quals(20_000, 8)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        before = kmer_cuda.extract_sort_keys.launches
+        fixed, stats = correct.correct_reads(
+            torch.from_numpy(codes), torch.from_numpy(lengths),
+            quals=torch.from_numpy(quals) if with_quals else None,
+            device=dev)
+        assert fixed.device.type == dev.type
+        launched = kmer_cuda.extract_sort_keys.launches - before
+        assert launched > 0 if dev.type == "cuda" else launched == 0
+        out[dev.type] = (fixed.cpu(), stats)
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][1]["changed_bases"] > 0
+
+
+@pytest.mark.cuda
+def test_correct_reads_ion_card_equals_cpu(card):
+    codes, lengths, _ = _reads_with_quals(10_000, 4)
+    a = ionhammer.correct_reads_ion(codes, lengths, device=card)
+    b = ionhammer.correct_reads_ion(codes, lengths, device="cpu")
+    assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
+    assert a[2] == b[2]
