@@ -28,7 +28,10 @@ prints no result):
    must move over the card's memory rate and its integer operations over
    the card's instruction rate; ``count_kmers`` on one chunk is timed too;
    at the corrector's shapes the launch is timed with and without the
-   strand byte;
+   strand byte; so it is at the read mapper's (L = 100, k+1 = 56, one
+   mate of the 4.6 Mb simulation: 920,000 reads) and at the edge index's
+   (the flat sequence of a 4.6 Mb graph cut into rows of 4096 bases that
+   overlap by k bases, the last one ragged);
 3. ``assemble_single_k`` at k=21 on a 20 kb simulated genome on the card
    and on the CPU: identical canonical contigs, coverages within
    rtol 1e-4 (float32 sums run in another order on the card); the
@@ -42,14 +45,20 @@ prints no result):
    and on the CPU: identical corrected codes and stats; the default
    command (correction, then the ladder) through the command line on
    both: identical contigs; ``--iontorrent --only-error-correction`` on
-   both: identical corrected reads;
+   both: identical corrected reads; the paired default command (``-1/-2``
+   with qualities, correction, gap closing, repeat resolution) on both:
+   identical contig and scaffold sequences, coverages within rtol 1e-4,
+   identical GFA segments, links and P-lines, equal ``contigs.paths``,
+   ``scaffolds.paths`` and ``final.lib_data``;
 4. the full-size run: ``assemble_single_k`` at k=55 on a simulated
    E. coli-sized genome (4.6 Mb, seed 7, 40x, 100 bp paired reads,
    error rate 0.002, planted repeats), graded against the truth with
    ``utils/assess``: genome fraction >= 0.97 and no misassembly; the
    kernel's launch count over the run must be positive; then the kernel
    against its plain version on the contig windows of this assembly, at
-   k+1 = 34 and 56: the row counts the ladder's later rungs hand it;
+   k+1 = 34 and 56: the row counts the ladder's later rungs hand it; and
+   on the rows the edge index of this graph hands it (k+1 = 56, timed
+   beside the bound);
 5. the profile: the same assembly again (phase 4 was its warm-up) under
    ``torch.profiler`` (device time by kernel, and the card's busy share:
    the union of device spans over the run's wall); with
@@ -79,7 +88,20 @@ prints no result):
    (the card's busy share). The kernel must launch inside the corrector,
    and while this phase runs the plain extraction raises if it is handed
    a tensor on the card. Wall, stages, the corrector's scopes and the
-   peak device memory are printed.
+   peak device memory are printed;
+8. the paired default command at full size: the reads of phase 4 as two
+   FASTQ files with qualities (first and second mates), then
+   ``cli.main(["-1", f1, "-2", f2, "-o", out, "--checkpoints", "none",
+   "--trace-time"])``: correction, the ladder, gap closing, paired repeat
+   resolution. It must return 0, meet the quality bar on ``contigs.fasta``
+   and on ``scaffolds.fasta`` with the N's removed, and launch the kernel
+   inside gap closing and inside repeat resolution, while the plain
+   extraction raises if it is handed a tensor on the card. NG50 of both
+   is printed beside the JAX package's record of the same simulation
+   (quality only), and the insert size, the wall, the stages, the
+   mapping and repeat-resolution scopes, the peak device memory and the
+   launches. The command runs once more under ``torch.profiler`` (the
+   card's busy share).
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 2 before printing any result. The last two lines of standard output are
@@ -123,6 +145,12 @@ RAGGED_SHAPES = ((100, 56, 100_003), (100, 56, 1), (40, 5, 1), (40, 5, 333),
 FULL_K = 55
 LADDER_KS = (21, 33, 55)  # the default ladder for 100 bp reads
 HAMMER_K = 21  # BayesHammer's k (make_error_correction)
+# the JAX package's record of phase 8's run (SCALE_r05_46m.json): NG50 of
+# the contigs and of the scaffolds; quality only, no time of it is quoted
+JAX_NG50 = {"contigs": 498_888, "scaffolds": 498_943}
+RR_SCOPES = ("gc_build_index", "gc_map_reads", "rr_build_index",
+             "rr_map_reads", "rr_pair_fill", "rr_resolve_paths",
+             "rr_scaffold")
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
 LADDER_GENOME = 1_000_000  # phase 6: the checkpointed ladder's cut size
 HAMMER_SCOPES = ("hammer_count", "hammer_cluster", "hammer_subcluster",
@@ -361,10 +389,14 @@ def phase_kernel_vs_plain(device) -> dict:
             bayes.expand_chunk_reads(FULL_READ_LEN, HAMMER_K, device),
             correct.vote_chunk_reads(FULL_READ_LEN, HAMMER_K, device))))
     log(f"[kernel] the corrector's shapes (L, k, reads): {hammer_shapes}")
+    # the read mapper's (gap closing, repeat resolution): one mate of the
+    # full-size library at the last rung's k+1, through the strand entry
+    mapper_shapes = ((FULL_READ_LEN, FULL_K + 1, full_reads // 2),)
+    strand_shapes = hammer_shapes + mapper_shapes
     rows = []
     for L in (100, 150):
         shapes = [sh for sh in dict.fromkeys(
-            SMOKE_SHAPES + main_shapes + hammer_shapes) if sh[0] == L]
+            SMOKE_SHAPES + main_shapes + strand_shapes) if sh[0] == L]
         most = max(R for _, _, R in shapes)
         codes, lengths = noisy_reads(rng, *sampled_reads(rng, most, L))
         codes_d = torch.from_numpy(codes).to(device)
@@ -378,7 +410,7 @@ def phase_kernel_vs_plain(device) -> dict:
             flags = torch.empty(n, dtype=torch.uint8, device=device) \
                 if k % 16 == 0 else None
             ms = cuda_ms(lambda: kernel.launch(c, ln, k, keys, flags), 10)
-            strand = (L, k, R) in hammer_shapes
+            strand = (L, k, R) in strand_shapes
             if strand:
                 fwd = torch.empty(n, dtype=torch.uint8, device=device)
                 strand_ms = cuda_ms(
@@ -395,8 +427,9 @@ def phase_kernel_vs_plain(device) -> dict:
                    "bound_by": bound_by,
                    "bound_share": bound_ms / ms,
                    "kernel_GBps": moved / ms / 1e6,
-                   "main_path": (L, k, R) in main_shapes + hammer_shapes,
-                   "hammer": strand}
+                   "main_path": (L, k, R) in main_shapes + strand_shapes,
+                   "hammer": (L, k, R) in hammer_shapes,
+                   "mapper": (L, k, R) in mapper_shapes}
             rows.append(row)
             log(f"[kernel] L={L} k={k} R={R} max_abs_err={err} kernel "
                 f"{ms:.3f} ms ({row['kernel_GBps']:.0f} GB/s; bound "
@@ -430,7 +463,57 @@ def phase_kernel_vs_plain(device) -> dict:
                 f"{row['count_kmers_ms']:.3f} ms, peak {peak / n:.1f} bytes "
                 f"a window")
             torch.cuda.empty_cache()
-    return {"rows": rows, "ragged": ragged}
+    # the edge index's rows: the flat sequence of a graph of the full-size
+    # genome (both strands) cut as build_edge_index cuts it
+    flat = torch.from_numpy(rng.integers(0, 4, 2 * FULL_GENOME,
+                                         dtype=np.uint8)).to(device)
+    index_rows = edge_rows_vs_plain(device, flat, 2 * FULL_GENOME,
+                                    FULL_K + 1, timed=True)
+    del flat
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ragged": ragged, "index_rows": index_rows}
+
+
+def edge_rows_vs_plain(device, flat, n: int, k: int, timed: bool) -> dict:
+    """The kernel (both entries) against its plain version on the rows
+    ``mapping/index.py::build_edge_index`` cuts ``flat[:n]`` into; with
+    ``timed`` the strand entry's launch, the wrapper and the plain
+    version are timed beside the bound."""
+    import torch
+    from spades_for_blackbird_tpu_torch.mapping import index
+    from spades_for_blackbird_tpu_torch.ops import kmer, kmer_cuda
+    kernel = kmer_cuda.extract_sort_keys
+    c, ln = index.flat_rows(flat, n, k)
+    R, L = c.shape
+    err = compare_kernel(kernel, c, ln, k)
+    row = {"L": L, "k": k, "R": R, "flat_bases": n,
+           "last_row": int(ln[-1]), "max_abs_err": err}
+    if timed:
+        windows = R * (L - k + 1)
+        keys = torch.empty((((k + 15) // 16 + 1) // 2, windows),
+                           dtype=torch.int64, device=device)
+        flags = torch.empty(windows, dtype=torch.uint8, device=device) \
+            if k % 16 == 0 else None
+        fwd = torch.empty(windows, dtype=torch.uint8, device=device)
+        row["strand_ms"] = cuda_ms(
+            lambda: kernel.launch(c, ln, k, keys, flags, fwd), 10)
+        del keys, flags, fwd
+        row["wrapper_ms"] = cuda_ms(lambda: kernel.canonical_keys(c, ln, k),
+                                    10)
+        row["plain_ms"] = cuda_ms(
+            lambda: kmer.extract_canonical_keys(c, ln, k), 3)
+        bound_ms, bound_by, moved = bound_of(R, L, k, strand=True)
+        row.update(bound_ms=bound_ms, bound_by=bound_by, kernel_bytes=moved)
+        log(f"[kernel] edge index rows L={L} k={k} R={R} (last row "
+            f"{row['last_row']} bases): strand entry {row['strand_ms']:.3f} "
+            f"ms (bound {bound_ms:.3f} ms, {bound_ms / row['strand_ms']:.0%}"
+            f" of it), wrapper {row['wrapper_ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms")
+    log(f"[kernel] edge index rows of {n} bases, L={L} k={k} R={R}: "
+        f"max_abs_err={err}")
+    if err != 0.0:
+        raise AssertionError(f"kernel != plain on edge index rows at k={k}")
+    return row
 
 
 def canonical_contigs(contigs):
@@ -506,15 +589,23 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
         fastq.write_reads_fastq(plain, codes, lengths)
         with_quals = os.path.join(tmp, "reads_q.fastq")
         write_fastq(with_quals, codes, quals)
-        runs = (("ladder", plain, ["-k", "21,33,55", "--only-assembler"]),
-                ("default", with_quals, ["-k", "21,33,55"]),
-                ("ion", with_quals, ["--iontorrent",
-                                     "--only-error-correction"]))
-        for name, fq, extra in runs:
+        # the first half of the reads are the first mates
+        half = codes.shape[0] // 2
+        mates = [os.path.join(tmp, f"reads_{m}.fastq") for m in (1, 2)]
+        write_fastq(mates[0], codes[:half], quals[:half])
+        write_fastq(mates[1], codes[half:], quals[half:])
+        runs = (("ladder", ["-s", plain, "-k", "21,33,55",
+                            "--only-assembler"]),
+                ("default", ["-s", with_quals, "-k", "21,33,55"]),
+                ("ion", ["-s", with_quals, "--iontorrent",
+                         "--only-error-correction"]),
+                ("paired", ["-1", mates[0], "-2", mates[1], "-k",
+                            "21,33,55"]))
+        for name, extra in runs:
             walls = {}
             for dev in ("cuda", "cpu"):
                 t0 = time.perf_counter()
-                rc = cli.main(["-s", fq, "-o", os.path.join(tmp, name, dev),
+                rc = cli.main(["-o", os.path.join(tmp, name, dev),
                                "--device", dev] + extra)
                 walls[dev] = time.perf_counter() - t0
                 if rc != 0:
@@ -530,29 +621,42 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
                     f"--only-error-correction: identical corrected reads; "
                     f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
                 continue
-            a, b = (read_fasta(os.path.join(d, "contigs.fasta"))
-                    for d in (card, cpu))
-            if [s for s, _ in a] != [s for s, _ in b]:
-                raise AssertionError(f"CLI {name} contigs differ between "
-                                     f"card and CPU")
-            if not np.allclose([c for _, c in a], [c for _, c in b],
-                               rtol=COV_RTOL, atol=1e-6):
-                raise AssertionError(f"CLI {name} contig coverages differ")
-            (sa, la), (sb, lb) = (gfa_records(os.path.join(
+            for fasta_name in ("contigs.fasta", "scaffolds.fasta"):
+                a, b = (read_fasta(os.path.join(d, fasta_name))
+                        for d in (card, cpu))
+                if [s for s, _ in a] != [s for s, _ in b]:
+                    raise AssertionError(f"CLI {name} {fasta_name} differs "
+                                         f"between card and CPU")
+                if not np.allclose([c for _, c in a], [c for _, c in b],
+                                   rtol=COV_RTOL, atol=1e-6):
+                    raise AssertionError(f"CLI {name} {fasta_name} "
+                                         f"coverages differ")
+            a = read_fasta(os.path.join(card, "contigs.fasta"))
+            (sa, la, pa), (sb, lb, pb) = (gfa_records(os.path.join(
                 d, "assembly_graph_with_scaffolds.gfa")) for d in (card, cpu))
-            if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb:
-                raise AssertionError(f"CLI {name} GFA segments or links "
-                                     f"differ between card and CPU")
+            if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb \
+                    or pa != pb:
+                raise AssertionError(f"CLI {name} GFA segments, links or "
+                                     f"paths differ between card and CPU")
+            if name == "paired":
+                for same in ("contigs.paths", "scaffolds.paths",
+                             "final.lib_data"):
+                    texts = [open(os.path.join(d, same)).read()
+                             for d in (card, cpu)]
+                    if texts[0] != texts[1] or not texts[0]:
+                        raise AssertionError(f"CLI paired {same} differs "
+                                             f"between card and CPU")
             if not np.allclose([x[2] for x in sa], [x[2] for x in sb],
                                rtol=COV_RTOL, atol=1e-6):
                 raise AssertionError(f"CLI {name} GFA segment coverages "
                                      f"differ")
             record[name] = {"contigs": len(a), "segments": len(sa),
-                            "links": len(la), "gpu_s": walls["cuda"],
-                            "cpu_s": walls["cpu"]}
+                            "links": len(la), "paths": len(pa),
+                            "gpu_s": walls["cuda"], "cpu_s": walls["cpu"]}
             log(f"[gpu-vs-cpu] 20 kb {name} through the CLI "
-                f"({' '.join(extra)}): {len(a)} identical contigs, "
-                f"{len(sa)} identical segments, {len(la)} identical links; "
+                f"({' '.join(x for x in extra if x not in mates)}): "
+                f"{len(a)} identical contigs, {len(sa)} identical segments, "
+                f"{len(la)} identical links, {len(pa)} identical P-lines; "
                 f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -606,8 +710,9 @@ def read_fasta(path: str) -> list[tuple[str, float]]:
 
 
 def gfa_records(path: str):
-    """([(segment, sequence, coverage)], [link lines]) of a GFA file."""
-    segs, links = [], []
+    """([(segment, sequence, coverage)], [link lines], [path lines]) of a
+    GFA file."""
+    segs, links, paths = [], [], []
     with open(path) as f:
         for line in f:
             parts = line.rstrip("\n").split("\t")
@@ -615,7 +720,9 @@ def gfa_records(path: str):
                 segs.append((parts[1], parts[2], float(parts[3][5:])))
             elif parts[0] == "L":
                 links.append(line)
-    return segs, links
+            elif parts[0] == "P":
+                paths.append(line)
+    return segs, links, paths
 
 
 def phase_full(device) -> tuple[dict, tuple]:
@@ -648,6 +755,7 @@ def phase_full(device) -> tuple[dict, tuple]:
     for name, sec in sorted(scopes.items(), key=lambda kv: -kv[1]):
         log(f"[full] scope {name}: {sec:.3f} s")
     report = assess.assess([s for s, _ in res.contigs], genome)
+    res_stats = res.stats
     log(f"[full] assemble_single_k k={FULL_K}: {wall:.2f} s, peak device "
         f"memory {peak / 2**30:.2f} GiB, kernel launches {launches}")
     log(f"[full] contigs: {json.dumps(report.to_dict())}")
@@ -660,11 +768,16 @@ def phase_full(device) -> tuple[dict, tuple]:
             f"{report.misassemblies} (== 0)")
     windows = contig_windows_vs_plain(
         device, [s for s, _ in res.contigs], FULL_READ_LEN)
+    g = res.graph
+    used = int(torch.where(g.alive, g.seq_start + g.seq_len, 0).max())
+    index_rows = edge_rows_vs_plain(device, g.seq_flat, used, FULL_K + 1,
+                                    timed=True)
+    del res, g
     return {"genome_size": FULL_GENOME, "reads": int(codes.shape[0]),
             "k": FULL_K, "wall_s": wall, "sim_s": sim_s,
             "peak_bytes": int(peak), "launches": launches,
-            "scopes_s": scopes, "stats": res.stats,
-            "contig_windows": windows,
+            "scopes_s": scopes, "stats": res_stats,
+            "contig_windows": windows, "index_rows": index_rows,
             "assess": report.to_dict()}, (genome, codes, lengths, quals)
 
 
@@ -1048,6 +1161,159 @@ def phase_hammer(device, genome, codes, lengths, quals) -> dict:
             "cli_spans_s": spans, "assess": report.to_dict()}
 
 
+@contextlib.contextmanager
+def launches_inside(kernel, targets):
+    """While open, count the kernel's launches made inside each of the
+    functions ``targets`` names ((module, attribute) pairs; the stages
+    call them through their module): yields {attribute: launches}."""
+    counts = {name: 0 for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            before = kernel.launches
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                counts[name] += kernel.launches - before
+        return call
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def quality(fasta_path: str, genome: str, strip_n: bool = False):
+    """``utils/assess`` of a FASTA against the truth (scaffolds with their
+    N's removed, as scale_bench.py grades them); raises below the bar."""
+    from spades_for_blackbird_tpu_torch.utils import assess
+    seqs = [s.replace("N", "") if strip_n else s
+            for s, _ in read_fasta(fasta_path)]
+    report = assess.assess(seqs, genome)
+    if report.genome_fraction < 0.97 or report.misassemblies != 0:
+        raise AssertionError(
+            f"quality bar missed on {os.path.basename(fasta_path)}: genome "
+            f"fraction {report.genome_fraction:.4f} (>= 0.97), "
+            f"misassemblies {report.misassemblies} (== 0)")
+    return report
+
+
+def phase_paired(device, genome, codes, lengths, quals) -> dict:
+    """The paired default command on the 4.6 Mb simulation: correction,
+    the ladder, gap closing and paired repeat resolution, from two FASTQ
+    files to contigs and scaffolds."""
+    import torch
+    from spades_for_blackbird_tpu_torch import cli
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.pipeline import assemble, gap_closer
+
+    kernel = kmer_cuda.extract_sort_keys
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        half = codes.shape[0] // 2  # the first half are the first mates
+        mates = [os.path.join(tmp, f"reads_{m}.fastq") for m in (1, 2)]
+        t0 = time.perf_counter()
+        write_fastq(mates[0], codes[:half], quals[:half])
+        write_fastq(mates[1], codes[half:], quals[half:])
+        write_s = time.perf_counter() - t0
+        log(f"[paired] wrote 2 x {half} reads with qualities, "
+            f"{sum(os.path.getsize(m) for m in mates) / 1e9:.2f} GB of "
+            f"FASTQ in {write_s:.1f} s")
+        argv = ["-1", mates[0], "-2", mates[1], "--checkpoints", "none",
+                "--trace-time"]
+        out = os.path.join(tmp, "out")
+        with plain_extraction_refused(), launches_inside(
+                kernel, [(gap_closer, "close_gaps"),
+                         (assemble, "repeat_resolution_multi")]) as inside:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["-o", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel.launches
+            peak = torch.cuda.max_memory_allocated(device)
+        if rc != 0:
+            raise AssertionError(f"cli.main returned {rc}")
+        spans = trace_seconds(os.path.join(out, "spades_time_trace.json"))
+        stages = {name: spans.get(f"stage:{name}", 0.0) for name in (
+            "read_conversion", "error_correction", "k21", "k33", "k55",
+            "gap_closing", "repeat_resolution", "contig_output")}
+        log(f"[paired] cli.main -1 -2 {' '.join(argv[4:])}: {wall:.2f} s, "
+            f"peak device memory {peak / 2**30:.2f} GiB, kernel launches "
+            f"{launches} (gap closing {inside['close_gaps']}, repeat "
+            f"resolution {inside['repeat_resolution_multi']})")
+        for name, sec in stages.items():
+            log(f"[paired] stage {name}: {sec:.3f} s")
+        for name in RR_SCOPES + ("coverage_model_fit", "condense",
+                                 "simplify", "phase_checkpoint"):
+            log(f"[paired] scope {name}: {spans.get(name, 0.0):.3f} s")
+        with open(os.path.join(out, "final.lib_data")) as f:
+            lib_data = f.read()
+        log("[paired] final.lib_data: " + " ".join(lib_data.split()))
+        with open(os.path.join(out, "spades.log")) as f:
+            for line in f:
+                if "closed" in line or "resolved" in line or "lib 0" in line:
+                    log(f"[paired] log: {line.strip()}")
+        reports = {}
+        for name, strip_n in (("contigs", False), ("scaffolds", True)):
+            rep = quality(os.path.join(out, f"{name}.fasta"), genome, strip_n)
+            reports[name] = rep.to_dict()
+            log(f"[paired] {name}: {rep.n_contigs} sequences, NG50 "
+                f"{rep.ng50} (the JAX package's record of this simulation: "
+                f"{JAX_NG50[name]}), genome fraction "
+                f"{rep.genome_fraction:.5f}, misassemblies "
+                f"{rep.misassemblies}")
+        for name, n in inside.items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched the kernel")
+        for name in ("contigs.paths", "scaffolds.paths",
+                     "scaffold_graph.scg", "assembly_graph.fastg"):
+            if not os.path.getsize(os.path.join(out, name)):
+                raise AssertionError(f"{name} is empty")
+        if not gfa_records(os.path.join(
+                out, "assembly_graph_with_scaffolds.gfa"))[2]:
+            raise AssertionError("the GFA holds no scaffold P-line")
+
+        # once more under torch.profiler: the card's busy share of the run
+        shutil.rmtree(out)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["-o", out])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli.main under the profiler returned {rc}")
+        rows, device_sum, busy = device_table(prof)
+        del prof
+        log(f"[paired] under torch.profiler: {prof_wall:.3f} s, device busy "
+            f"union {busy:.3f} s"
+            + (f" = {busy / prof_wall:.1%}" if rows else
+               " (no device span seen: not measured)"))
+        for name, sec, n in rows[:15]:
+            log(f"[paired] profile {sec:8.4f} s {n:7d}x  {name[:120]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"reads": int(codes.shape[0]), "wall_s": wall,
+            "fastq_write_s": write_s, "launches": launches,
+            "launches_inside": dict(inside), "peak_bytes": int(peak),
+            "stages_s": stages, "spans_s": spans, "lib_data": lib_data,
+            "assess": reports,
+            "profile": {"profiled_wall_s": prof_wall,
+                        "device_busy_union_s": busy,
+                        "device_busy_share": busy / prof_wall if rows
+                        else None,
+                        "device_summed_s": device_sum,
+                        "device_kernels": rows[:PROFILE_TOP_KERNELS]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1082,6 +1348,8 @@ def main(argv=None) -> int:
         record["ladder"] = phase_ladder(device)
         record["hammer"] = phase_hammer(device, genome, codes, lengths,
                                         quals)
+        record["paired"] = phase_paired(device, genome, codes, lengths,
+                                        quals)
     except Exception:  # any failed phase fails the smoke
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1096,19 +1364,27 @@ def main(argv=None) -> int:
     rows = record["kernel_vs_plain"]["rows"]
     main_row = next(r for r in rows
                     if r["main_path"] and r["k"] == FULL_K + 1)
+    index_rows = record["kernel_vs_plain"]["index_rows"]
     compared = (rows + record["kernel_vs_plain"]["ragged"]
                 + record["gpu_vs_cpu"]["contig_windows"]
-                + record["full"]["contig_windows"])
+                + record["full"]["contig_windows"]
+                + [index_rows, record["full"]["index_rows"]])
     hammer = record["hammer"]
+    paired = record["paired"]
     launches = (record["full"]["launches"] + record["ladder"]["launches"]
-                + hammer["launches"] + hammer["cli_launches"])
+                + hammer["launches"] + hammer["cli_launches"]
+                + paired["launches"])
     log(f"kernel launches on the main paths: single K "
         f"{record['full']['launches']}, ladder through the CLI "
         f"{record['ladder']['launches']}, correct_reads "
         f"{hammer['launches']}, the default command "
-        f"{hammer['cli_launches']}")
+        f"{hammer['cli_launches']}, the paired default command "
+        f"{paired['launches']} (gap closing "
+        f"{paired['launches_inside']['close_gaps']}, repeat resolution "
+        f"{paired['launches_inside']['repeat_resolution_multi']})")
     strand_row = next(r for r in rows if r.get("strand_ms") is not None
                       and r["R"] == hammer["reads"])
+    mapper_row = next(r for r in rows if r["mapper"])
     log(card)
     print(json.dumps({"kernels": [{
         "name": "kmer_extract",
@@ -1132,6 +1408,22 @@ def main(argv=None) -> int:
         "strand_entry": {key: strand_row[key] for key in (
             "R", "L", "k", "ms", "bound_ms", "strand_ms", "strand_bound_ms",
             "strand_plain_ms", "strand_bound_by")},
+        "mapper_shape": {key: mapper_row[key] for key in (
+            "R", "L", "k", "strand_ms", "strand_bound_ms", "strand_plain_ms",
+            "strand_bound_by")},
+        "edge_index_rows": {key: record["full"]["index_rows"][key]
+                            for key in ("R", "L", "k", "last_row",
+                                        "strand_ms", "wrapper_ms",
+                                        "plain_ms", "bound_ms", "bound_by")},
+        "launch_sites": {
+            "single_k": record["full"]["launches"],
+            "ladder_cli": record["ladder"]["launches"],
+            "correct_reads": hammer["launches"],
+            "default_cli": hammer["cli_launches"],
+            "paired_cli": paired["launches"],
+            "gap_closing": paired["launches_inside"]["close_gaps"],
+            "repeat_resolution":
+                paired["launches_inside"]["repeat_resolution_multi"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

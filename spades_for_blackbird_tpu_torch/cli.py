@@ -13,9 +13,22 @@ spades.log, params.json, saves/).
 The run is on a CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits 1 before it reads anything. Stages whose
 modules are not ported yet hold their places in the stage list; a run
-that would reach one exits 2 before any work, naming them.
+that would reach one exits 2 before any work, naming them: ``--careful``,
+every mode but isolate (and ``--large-genome``), long reads
+(``--pacbio``, ``--nanopore``, ``--sanger``) and ``--assembly-graph``.
+
+Paired libraries (``-1/-2``, ``--12``, ``--mp-1/--mp-2``) add gap
+closing and paired repeat resolution (exSPAnder path extension, loop
+traversal, scaffolding, gap polishing) after the K ladder, and the run
+writes ``contigs.paths``, ``scaffolds.paths``, ``final.lib_data``,
+``scaffold_graph.scg`` and ``scaffold_graph.dot`` besides the files
+above; the GFA then carries the scaffolds as P-lines.
 
 Usage:
+    python -m spades_for_blackbird_tpu_torch -1 reads_1.fq.gz \\
+        -2 reads_2.fq.gz -o out                    # on the card
+    python -m spades_for_blackbird_tpu_torch -1 reads_1.fq.gz \\
+        -2 reads_2.fq.gz -o out --device cpu       # on the CPU
     python -m spades_for_blackbird_tpu_torch -s reads.fq.gz -o out \\
         --only-assembler
 """

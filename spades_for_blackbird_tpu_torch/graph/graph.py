@@ -63,6 +63,17 @@ class Graph:
     def _replace(self, **kw) -> "Graph":
         return dataclasses.replace(self, **kw)
 
+    def to(self, device) -> "Graph":
+        """The graph on ``device`` (itself when it is there already)."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        return Graph(**{
+            f.name: (getattr(self, f.name).to(device)
+                     if isinstance(getattr(self, f.name), torch.Tensor)
+                     else getattr(self, f.name))
+            for f in dataclasses.fields(self)})
+
 
 def edge_mask(g: Graph) -> torch.Tensor:
     """Alive real edges."""

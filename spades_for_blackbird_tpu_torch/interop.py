@@ -5,7 +5,10 @@ port keeps words as int64 values in [0, 2**32) and indices as int64.
 These functions convert both ways, so that state produced elsewhere
 (for example the JAX package's counted table or built graph, read out
 with ``numpy.asarray``) can enter any stage of the port, and the port's
-state can be compared bit for bit with it.
+state can be compared bit for bit with it. The repeat resolution's
+state crosses too: the edge k-mer index (JAX words <-> fused keys), read
+and chain mappings, paired indices, insert-size statistics and path
+sets.
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ from .hammer.bayes import KmerQualStats, SubClusters
 from .hammer.cluster import HammerClusters
 from .kmers.counter import KmerTable
 from .kmers.extension import VertexTable
+from .mapping.index import EdgeKmerIndex
+from .mapping.mapper import ChainMapping, ReadMapping
+from .ops import dna, segments
+from .paired.insert_size import InsertSizeStats
+from .paired.pair_info import PairedIndex, host_index
+from .path_extend.resolver import PathSet
 
 GRAPH_FIELDS = ("seq_flat", "seq_start", "seq_len", "cov", "start_v",
                 "end_v", "conj", "alive", "num_edges", "flank")
@@ -162,3 +171,96 @@ def subclusters_to_numpy(s: SubClusters) -> dict:
             "is_center": s.is_center.cpu().numpy(),
             "center_bases": s.center_bases.cpu().numpy(),
             "rep": s.rep.cpu().numpy().astype(np.int32)}
+
+
+def edge_index_from_numpy(kmers, edge, offset, is_fwd, num, k: int,
+                          device="cpu") -> EdgeKmerIndex:
+    """The JAX package's ``EdgeKmerIndex`` fields (uint32 (N, W) words,
+    int32 edge and offset, bool strand) -> the port's (fused keys)."""
+    return EdgeKmerIndex(
+        keys=torch.stack(segments.fuse_words(_words(kmers, device))),
+        edge=_as(edge, np.int64, device), offset=_as(offset, np.int64, device),
+        is_fwd=_as(is_fwd, np.bool_, device), num=_scalar(num, device), k=k)
+
+
+def edge_index_to_numpy(index) -> dict:
+    """EdgeKmerIndex -> {kmers: uint32 (N, W), edge, offset: int32,
+    is_fwd: bool, num: int, k}."""
+    words = segments.unfuse_keys(list(index.keys.unbind(0)),
+                                 dna.words_per_kmer(index.k))
+    return {"kmers": words.cpu().numpy().astype(np.uint32),
+            "edge": index.edge.cpu().numpy().astype(np.int32),
+            "offset": index.offset.cpu().numpy().astype(np.int32),
+            "is_fwd": index.is_fwd.cpu().numpy(),
+            "num": int(index.num), "k": index.k}
+
+
+def _mapping_from_numpy(cls, arrays: dict, device):
+    return cls(**{name: _as(arrays[name], np.bool_ if name == "mapped"
+                            else np.int64, device) for name in cls._fields})
+
+
+def _mapping_to_numpy(m) -> dict:
+    return {name: (getattr(m, name).cpu().numpy() if name == "mapped"
+                   else getattr(m, name).cpu().numpy().astype(np.int32))
+            for name in m._fields}
+
+
+def read_mapping_from_numpy(arrays: dict, device="cpu"):
+    """{oriented_edge, start, votes: int32 (R,), mapped: bool (R,)} (the
+    JAX package's ``ReadMapping`` fields) -> the port's."""
+    return _mapping_from_numpy(ReadMapping, arrays, device)
+
+
+def read_mapping_to_numpy(m) -> dict:
+    """ReadMapping -> {field: numpy array}, the JAX package's dtypes."""
+    return _mapping_to_numpy(m)
+
+
+def chain_mapping_from_numpy(arrays: dict, device="cpu"):
+    """The JAX package's ``ChainMapping`` fields ((R, C) int32 columns,
+    (R,) chain_len and mapped) -> the port's."""
+    return _mapping_from_numpy(ChainMapping, arrays, device)
+
+
+def chain_mapping_to_numpy(m) -> dict:
+    """ChainMapping -> {field: numpy array}, the JAX package's dtypes."""
+    return _mapping_to_numpy(m)
+
+
+def paired_index_from_numpy(e1, e2, dist, weight, num, var=None,
+                            device="cpu"):
+    """The JAX package's ``PairedIndex`` fields (int32 e1, e2, dist,
+    float32 weight and var, or var None) -> the port's, on ``device``."""
+    return PairedIndex(
+        e1=_as(e1, np.int64, device), e2=_as(e2, np.int64, device),
+        dist=_as(dist, np.int64, device),
+        weight=_as(weight, np.float32, device), num=_scalar(num, device),
+        var=None if var is None else _as(var, np.float32, device))
+
+
+def paired_index_to_numpy(idx) -> dict:
+    """PairedIndex (on a device or on the host) -> {e1, e2, dist: int32,
+    weight, var: float32 or None, num: int}."""
+    return host_index(idx)._asdict()
+
+
+def insert_size_stats_from_numpy(stats: dict):
+    """``vars()`` of the JAX package's ``InsertSizeStats`` -> the port's."""
+    return InsertSizeStats(**stats)
+
+
+def insert_size_stats_to_numpy(stats) -> dict:
+    """InsertSizeStats -> the dict the JAX package's class is made from."""
+    return dict(vars(stats))
+
+
+def path_set_from_numpy(paths) -> PathSet:
+    """Lists of edge ids (the JAX package's ``PathSet.paths``) -> the
+    port's PathSet."""
+    return PathSet(paths=[[int(e) for e in p] for p in paths])
+
+
+def path_set_to_numpy(ps) -> list[list[int]]:
+    """PathSet -> its lists of edge ids."""
+    return [[int(e) for e in p] for p in ps.paths]

@@ -96,6 +96,19 @@ def rows_equal_prev(keys: torch.Tensor) -> torch.Tensor:
                       eq])
 
 
+def run_heads(cols: list[torch.Tensor]) -> torch.Tensor:
+    """(N,) bool: row i of sorted key columns (each (N,)) starts a run of
+    equal rows (row 0 always does)."""
+    n = cols[0].shape[0]
+    head = torch.ones(n, dtype=torch.bool, device=cols[0].device)
+    if n:
+        differs = cols[0][1:] != cols[0][:-1]
+        for c in cols[1:]:
+            differs |= c[1:] != c[:-1]
+        head[1:] = differs
+    return head
+
+
 def unique_counts(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor,
                   weights: torch.Tensor | None = None):
     """Run-length encode sorted rows.
@@ -142,11 +155,7 @@ def _encode_runs(skeys: list[torch.Tensor], svalid: torch.Tensor,
     row (N for invalid rows))."""
     N = skeys[0].shape[0]
     dev = skeys[0].device
-    differs = skeys[0][1:] != skeys[0][:-1]
-    for c in skeys[1:]:
-        differs |= c[1:] != c[:-1]
-    seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                           differs]) & svalid
+    seg_start = run_heads(skeys) & svalid
     scatter_gid = torch.where(svalid, torch.cumsum(seg_start, 0) - 1, N)
     uniq = []
     for c, sent in zip(skeys, sentinels):

@@ -1,4 +1,5 @@
-"""Single-K assembly and the K ladder: reads -> simplified graph -> contigs.
+"""Single-K assembly, the K ladder and repeat resolution: reads ->
+simplified graph -> contigs and scaffolds.
 
 PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/assemble.py``,
 single-device branch. ``assemble_single_k`` counts (k+1)-mers, fits the
@@ -6,7 +7,9 @@ coverage model, builds the vertex table, clips early tips, condenses
 unitigs, compacts, simplifies and emits contigs (the reference's per-K
 Construction -> GenomicInfoFiller -> Simplification -> ContigOutput).
 ``assemble_multi_k`` runs it once per K, each rung's contigs fed into the
-next rung's construction.
+next rung's construction. ``repeat_resolution_multi`` maps paired
+libraries onto the final graph and extends, joins and scaffolds paths
+through it (the reference's RepeatResolution).
 """
 
 from __future__ import annotations
@@ -22,9 +25,14 @@ import torch
 from .. import interop
 from ..graph import condense, construct
 from ..graph.graph import compact_graph
+from ..graph.host import host_view
 from ..io import fasta
 from ..kmers import counter, coverage_model, early_tips, extension
+from ..mapping import chunked, mapper
+from ..mapping import index as eidx
 from ..ops import dna
+from ..paired import insert_size, pair_info
+from ..path_extend import loop_traverser, polisher, resolver, scaffolder
 from ..simplify import runner
 from ..utils import timetrace
 from ..utils.device import resolve_device
@@ -250,6 +258,164 @@ def default_k_ladder(read_length: int) -> list[int]:
     if read_length >= 150:
         return K_MERS_150
     return K_MERS_SHORT
+
+
+def repeat_resolution(g, codes1, lengths1, codes2, lengths2,
+                      with_scaffolds: bool = False,
+                      estimator: str = "simple", device=None):
+    """exSPAnder repeat resolution over the final graph using one
+    paired library (the RepeatResolution stage,
+    projects/spades/repeat_resolving.cpp:62). See
+    ``repeat_resolution_multi`` for the per-library model."""
+    kind = "mp" if estimator == "smoothing" else "pe"
+    return repeat_resolution_multi(
+        g, [(codes1, lengths1, codes2, lengths2, kind)],
+        with_scaffolds=with_scaffolds, device=device)
+
+
+def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
+                            lib_data_out: list | None = None,
+                            scaffold_graph_out: dict | None = None,
+                            long_reads=None,
+                            paths_out: dict | None = None,
+                            device=None):
+    """Per-library repeat resolution (pair_info_count.cpp:186-230 +
+    extenders_logic.cpp per-lib extender construction): each library
+    gets its OWN insert-size estimate, paired-index shift and distance
+    estimator (simple for PE, multi-peak smoothing for MP,
+    distance_estimation.cpp estimator choice per library type), then all
+    feed the composite extender.
+
+    ``libs``: list of (codes1, lengths1, codes2, lengths2, kind) with
+    kind in {"pe", "mp"}; second mates as read (FR orientation after
+    read conversion), reverse-complemented here to face downstream.
+
+    The JAX package's single-device branch: the index, the mapping, the
+    insert-size histogram, the paired index and its distance estimate run
+    on ``device`` (``resolve_device``: the card unless ``"cpu"`` is asked
+    for; the graph and reads are moved there); split-path filling, path
+    extension, loop traversal, scaffolding and polishing run on the host,
+    on one copy of the graph. ``long_reads`` (the hybrid branch) is not
+    ported yet.
+    """
+    if long_reads is not None:
+        raise NotImplementedError(
+            "repeat_resolution_multi(long_reads=...) is not ported to "
+            "PyTorch yet (ROADMAP.md, Queue 1, item 11)")
+    device = resolve_device(device, g.seq_flat)
+    g = g.to(device)
+    k = g.k
+    with _scope("rr_build_index", device):
+        idx = eidx.build_edge_index(g, k + 1, device=device)
+
+    def chain_map(c, l):
+        ch = chunked.map_reads_multi_chunked(
+            idx, g.seq_len, c, l, k + 1, min_votes=1, device=device)
+        return mapper.normalize_chain(ch, g.conj)
+
+    def first_placement(ch):
+        return mapper.ReadMapping(
+            oriented_edge=ch.oriented_edge[:, 0], start=ch.start[:, 0],
+            votes=ch.votes[:, 0], mapped=ch.mapped)
+
+    libs = [(_to_device(c1, torch.uint8, device),
+             _to_device(l1, torch.int32, device),
+             _to_device(c2, torch.uint8, device),
+             _to_device(l2, torch.int32, device), kind)
+            for c1, l1, c2, l2, kind in libs]
+    total_bases = float(sum(int(l1.sum()) + int(l2.sum())
+                            for _, l1, _, l2, _ in libs)) or 1.0
+    hv = host_view(g)
+    specs = []
+    clustered_all = []
+    for codes1, lengths1, codes2, lengths2, kind in libs:
+        c2rc = dna.revcomp_reads(codes2, lengths2)
+        # chain mappings: junction-spanning reads place on EVERY
+        # traversed edge (the MappingPath equivalent); pair filling
+        # uses all edge combinations + split-read adjacency pairs
+        with _scope("rr_map_reads", device):
+            ch1 = chain_map(codes1, lengths1)
+            ch2 = chain_map(c2rc, lengths2)
+        del c2rc
+        stats = insert_size.estimate_insert_size(
+            first_placement(ch1), first_placement(ch2), lengths2)
+        read_length = max(int(lengths1.max()) if lengths1.numel() else 0,
+                          int(lengths2.max()) if lengths2.numel() else 0)
+        if lib_data_out is not None:
+            # the final.lib_data equivalent (pipeline.cpp:288
+            # write_lib_data): estimated per-lib parameters
+            lib_data_out.append({
+                "kind": kind,
+                "read_length": read_length,
+                "insert_size_median": float(stats.median),
+                "insert_size_mad": float(stats.mad),
+                "pairs_used": int(stats.count),
+            })
+        if stats.count == 0:
+            continue
+        mean_l2 = int(lengths2.sum()) / lengths2.shape[0]
+        with _scope("rr_pair_fill", device):
+            pi = pair_info.fill_paired_index_multi_chunked(
+                ch1, ch2, int(round(stats.median - mean_l2)))
+        del ch1, ch2
+        spread = max(5, int(3 * stats.mad))
+        if kind == "mp":
+            # mate pairs: broad, multi-modal histograms -> multi-peak
+            # smoothing estimator (smoothing_distance_estimation.hpp:19)
+            clustered = pair_info.host_index(
+                pair_info.cluster_distances_smoothing(
+                    pi, max(spread, 20), 2.0))
+        else:
+            clustered = pair_info.cluster_distances(pi, spread)
+            # PairInfoImprover's FillMissing on the clustered PE index
+            # (distance_estimation.cpp:161 + pair_info_improver.hpp:215):
+            # split-path derivation along forced path suffixes only
+            clustered = pair_info.split_path_fill(
+                hv, clustered, float(stats.median), float(stats.deviation))
+        share = float(int(lengths1.sum()) + int(lengths2.sum())) / total_bases
+        specs.append(resolver.LibSpec(
+            clustered, is_stats=stats, read_length=read_length,
+            kind=kind, coverage_share=share))
+        clustered_all.append(clustered)
+    del idx
+
+    if not specs:
+        rows = fasta.graph_contigs(g, min_length=2 * k, with_edges=True)
+        contigs = [(s, c) for s, c, _ in rows]
+        if paths_out is not None:
+            paths_out["contigs"] = [[e] for _, _, e in rows]
+            paths_out["scaffolds"] = [[(e, 0)] for _, _, e in rows]
+        return (contigs, contigs) if with_scaffolds else contigs
+
+    with _scope("rr_resolve_paths", device):
+        ps = resolver.resolve_paths_multi(hv, specs)
+    # tandem-repeat traversal after extension (launcher.cpp:301
+    # TraverseLoops): joins surface as k+100 N gaps in scaffolds
+    loop_joins = loop_traverser.traverse_loops(hv, ps)
+    crows = resolver.paths_to_contigs(hv, ps, with_paths=True)
+    contigs = [(s, c) for s, c, _ in crows]
+    if paths_out is not None:
+        paths_out["contigs"] = [p for _, _, p in crows]
+    if not with_scaffolds:
+        return contigs
+    merged = pair_info.merge_paired_indices(clustered_all)
+    # gap-analysis thresholds scale with the (largest) library IS
+    # variation (extenders_logic.cpp:105-107 MakeGapAnalyzer)
+    sparams = scaffolder.ScaffoldParams(
+        is_variation=max(float(s.is_stats.deviation) for s in specs),
+        read_length=max(s.read_length for s in specs))
+    with _scope("rr_scaffold", device):
+        chains = scaffolder.scaffold_paths(hv, ps, merged, params=sparams,
+                                           forced_joins=loop_joins,
+                                           sg_out=scaffold_graph_out)
+        # gap polishing: unique graph paths replace N runs
+        # (scaffolder2015/path_polisher.cpp)
+        chains, _ = polisher.polish_scaffolds(hv, chains)
+    srows = scaffolder.scaffolds_to_contigs(hv, chains, with_paths=True)
+    scaffolds = [(s, c) for s, c, _ in srows]
+    if paths_out is not None:
+        paths_out["scaffolds"] = [p for _, _, p in srows]
+    return contigs, scaffolds
 
 
 def assemble_multi_k(codes, lengths, ks: list[int] | None = None,

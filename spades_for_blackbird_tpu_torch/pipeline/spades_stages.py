@@ -4,11 +4,13 @@ PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/spades_stages.py``
 (``assemble_genome``'s stage assembly, projects/spades/pipeline.cpp:213-290):
 ReadConversion -> [ErrorCorrection] -> one iteration stage per K
 (Construction + GenomicInfoFiller + Simplification fused) ->
-RepeatResolution -> ContigOutput.
+[GapClosing] -> RepeatResolution -> ContigOutput.
 
 Ported so far: read conversion, error correction (BayesHammer, or
-IonHammer with --iontorrent), the iteration stages, repeat resolution
-without a paired library, and contig output. Every other stage of the JAX
+IonHammer with --iontorrent), the iteration stages, gap closing, repeat
+resolution (paired libraries through exSPAnder path extension and
+scaffolding; without one the contigs pass through), and contig output.
+Every other stage of the JAX
 package's list still takes its place under its name, as a stage that
 raises ``NotImplementedError`` (``_unported``); ``cli.main`` reads their
 ``unported`` field before it runs anything.
@@ -27,7 +29,7 @@ from ..hammer import ionhammer
 from ..io import fasta, fastg, fastq, gfa
 from ..ops import dna
 from ..utils.device import resolve_device
-from . import assemble
+from . import assemble, gap_closer
 from .config import AssemblyConfig
 from .stages import PipelineContext, Stage
 
@@ -213,19 +215,106 @@ def _range_kind(r) -> str:
     return r[4] if len(r) > 4 else "pe"
 
 
-def make_repeat_resolution(log):
-    """Without a paired library the contigs pass through. The paired
-    branch (mapping, paired info, path extension) is not ported yet."""
+def _paired_mate_arrays(ctx: PipelineContext):
+    """All first mates and all second mates of the paired libraries,
+    gathered where the reads lie (no copy to the host)."""
+    dev = ctx.codes.device
+    idx1 = torch.from_numpy(np.concatenate(
+        [np.arange(r[0], r[0] + r[1]) for r in ctx.paired_ranges])).to(dev)
+    idx2 = torch.from_numpy(np.concatenate(
+        [np.arange(r[2], r[2] + r[3]) for r in ctx.paired_ranges])).to(dev)
+    return (ctx.codes[idx1], ctx.lengths[idx1],
+            ctx.codes[idx2], ctx.lengths[idx2])
+
+
+def _paired_lib_arrays(ctx: PipelineContext):
+    """Per-library mate arrays: [(c1, l1, c2, l2, kind)], the per-lib
+    model (library.hpp SequencingLibrary) replacing pooled mates; views
+    of the reads where they lie (contiguous ranges)."""
+    c, l = ctx.codes, ctx.lengths
+    libs = []
+    for r in ctx.paired_ranges:
+        s1, n1, s2, n2 = r[0], r[1], r[2], r[3]
+        libs.append((c[s1:s1 + n1], l[s1:s1 + n1],
+                     c[s2:s2 + n2], l[s2:s2 + n2],
+                     _range_kind(r)))
+    return libs
+
+
+def make_gap_closing(log, device=None):
+    """GapClosing (projects/spades/gap_closer.cpp): ``device`` as
+    ``close_gaps`` takes it: by default the card the context's reads are
+    on, else the first card; the CPU only on request."""
+    def run(ctx: PipelineContext):
+        if not ctx.paired_ranges or ctx.graph is None:
+            log("gap closing skipped (no paired libraries)")
+            return
+        dev = resolve_device(device, ctx.codes)
+        c1, l1, c2, l2 = _paired_mate_arrays(ctx)
+        g, joined = gap_closer.close_gaps(ctx.graph, c1, l1, c2, l2,
+                                          device=dev)
+        ctx.graph = g
+        if joined:
+            ctx.contigs = fasta.graph_contigs(g, min_length=2 * g.k)
+        log(f"closed {joined} gaps")
+    return Stage("gap_closing", run)
+
+
+def make_repeat_resolution(log, output_dir=None, device=None):
+    """RepeatResolution (projects/spades/repeat_resolving.cpp): without
+    a paired library the contigs pass through; with one,
+    ``assemble.repeat_resolution_multi`` over each library, and the
+    paths, scaffold graph and library data it reports are written."""
     def run(ctx: PipelineContext):
         if not ctx.paired_ranges or ctx.graph is None:
             ctx.final_contigs = list(ctx.contigs)
             log("no paired libraries: RR skipped (contig paths only, "
                 "repeat_resolving.cpp:62 'rr disabled' branch)")
             return
-        kinds = sorted({_range_kind(r) for r in ctx.paired_ranges})
-        raise NotImplementedError(
-            f"repeat resolution over paired libraries ({', '.join(kinds)}) "
-            f"is not ported to PyTorch yet (ROADMAP.md, Queue 1, d)")
+        dev = resolve_device(device, ctx.codes)
+        libs = _paired_lib_arrays(ctx)
+        lib_data: list = []
+        sg_out: dict = {}
+        paths_out: dict = {}
+        final, scaffolds = assemble.repeat_resolution_multi(
+            ctx.graph, libs, with_scaffolds=True, lib_data_out=lib_data,
+            scaffold_graph_out=sg_out, paths_out=paths_out, device=dev)
+        # edge-id paths feed contigs.paths/scaffolds.paths + GFA P
+        # records at contig output (contig_output_stage.cpp:105-112)
+        ctx.params["contig_paths"] = [
+            [[int(e), 0] for e in p] for p in paths_out.get("contigs", [])]
+        ctx.params["scaffold_paths"] = [
+            [[int(e), int(gap)] for e, gap in p]
+            for p in paths_out.get("scaffolds", [])]
+        if output_dir is not None and "graph" in sg_out:
+            # PrintScaffoldGraph (launcher.cpp:85): .scg dump + dot
+            sg = sg_out["graph"]
+            with open(os.path.join(output_dir,
+                                   "scaffold_graph.scg"), "w") as f:
+                f.write(sg.to_tsv())
+            with open(os.path.join(output_dir,
+                                   "scaffold_graph.dot"), "w") as f:
+                f.write(sg.to_dot(ctx.graph))
+            log(f"scaffold graph: {sg.vertex_count} vertices, "
+                f"{sg.edge_count} connections")
+        ctx.final_contigs = final
+        ctx.scaffolds = scaffolds
+        ctx.params["lib_data"] = lib_data
+        for i, ld in enumerate(lib_data):
+            log(f"  lib {i} ({ld['kind']}): IS median "
+                f"{ld['insert_size_median']:.0f} mad "
+                f"{ld['insert_size_mad']:.0f} from {ld['pairs_used']} "
+                f"pairs")
+        if output_dir is not None:
+            # final.lib_data equivalent (pipeline.cpp:288 write_lib_data)
+            with open(os.path.join(output_dir, "final.lib_data"),
+                      "w") as f:
+                for i, ld in enumerate(lib_data):
+                    f.write(f"- lib: {i}\n")
+                    for key, val in ld.items():
+                        f.write(f"  {key}: {val}\n")
+        log(f"resolved {len(final)} paths, {len(scaffolds)} scaffolds "
+            f"({len(libs)} libs)")
     return Stage("repeat_resolution", run)
 
 
@@ -311,7 +400,7 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
     if getattr(args, "ss", None) and cfg.strand_specific:
         stages.append(_unported("ss_edge_split", "item 11"))
     if paired:
-        stages.append(_unported("gap_closing", "d"))
+        stages.append(make_gap_closing(log, device=device))
     long_reads = (getattr(args, "pacbio", []) +
                   getattr(args, "nanopore", []) +
                   getattr(args, "sanger", []))
@@ -329,9 +418,9 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
         stages.append(_unported("series_analysis", "item 11"))
 
     def repeat_resolution(name):
-        if paired:
-            return _unported(name, "d")
-        return dataclasses.replace(make_repeat_resolution(log), name=name)
+        return dataclasses.replace(
+            make_repeat_resolution(log, args.output_dir, device=device),
+            name=name)
 
     stages.append(repeat_resolution("repeat_resolution"))
     hmm_set = getattr(args, "custom_hmms", None)

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written
 k-mer extraction kernel (both entries) against its plain PyTorch
-version, and the K ladder and the error corrector on the card against
+version, and the K ladder, the error corrector, the read mapper, the
+paired index, the gap closer and repeat resolution on the card against
 the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
 and without JAX it runs as
 
@@ -15,8 +16,12 @@ torch = pytest.importorskip("torch")
 from spades_for_blackbird_tpu_torch.hammer import correct  # noqa: E402
 from spades_for_blackbird_tpu_torch.hammer import ionhammer  # noqa: E402
 from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
+from spades_for_blackbird_tpu_torch.mapping import (  # noqa: E402
+    chunked, index, mapper)
 from spades_for_blackbird_tpu_torch.ops import dna, kmer, kmer_cuda  # noqa: E402
-from spades_for_blackbird_tpu_torch.pipeline import assemble  # noqa: E402
+from spades_for_blackbird_tpu_torch.paired import pair_info  # noqa: E402
+from spades_for_blackbird_tpu_torch.pipeline import (  # noqa: E402
+    assemble, gap_closer)
 from spades_for_blackbird_tpu_torch.utils import simulate  # noqa: E402
 
 
@@ -239,3 +244,74 @@ def test_correct_reads_ion_card_equals_cpu(card):
     b = ionhammer.correct_reads_ion(codes, lengths, device="cpu")
     assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
     assert a[2] == b[2]
+
+
+def _paired_graph(size, seed):
+    """A k = 33 graph of a simulation (assembled on the CPU) and its 100 bp
+    pairs (insert 300): (graph, codes1, lengths1, codes2, lengths2)."""
+    genome = simulate.random_genome(size, seed=seed, repeats=[(400, 2)])
+    r1, _, r2, _ = simulate.simulate_paired_reads(
+        genome, size // 5, read_len=100, error_rate=0.002, seed=seed + 1)
+    codes, lengths = dna.encode_reads(r1 + r2)
+    g = assemble.assemble_single_k(codes, lengths, 33, device="cpu").graph
+    return (g, *dna.encode_reads(r1), *dna.encode_reads(r2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kp1", [34, 56])
+def test_edge_index_and_mapping_card_equals_cpu(card, kp1):
+    g, c1, l1, _, _ = _paired_graph(20_000, 12)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        before = kmer_cuda.extract_sort_keys.launches
+        idx = index.build_edge_index(g, kp1, device=dev)
+        one = chunked.map_reads_chunked(idx, g.seq_len, c1, l1, kp1,
+                                        device=dev)
+        multi = chunked.map_reads_multi_chunked(idx, g.seq_len, c1, l1, kp1,
+                                                min_votes=1, chunk=1000,
+                                                device=dev)
+        launched = kmer_cuda.extract_sort_keys.launches - before
+        assert launched >= 3 if dev.type == "cuda" else launched == 0
+        out[dev.type] = [t.cpu() for t in (*idx[:5], *one, *multi)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paired_index_and_estimators_card_equals_cpu(card):
+    g, c1, l1, c2, l2 = _paired_graph(20_000, 13)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        idx = index.build_edge_index(g, 34, device=dev)
+        c2rc = dna.revcomp_reads(torch.from_numpy(c2).to(dev),
+                                 torch.from_numpy(l2).to(dev))
+        ch = [mapper.normalize_chain(chunked.map_reads_multi_chunked(
+            idx, g.seq_len, c, l, 34, min_votes=1, device=dev),
+            g.conj.to(dev)) for c, l in ((c1, l1), (c2rc, l2))]
+        raw = pair_info.fill_paired_index_multi_chunked(*ch, 200)
+        out[dev.type] = [pair_info.host_index(x) for x in (
+            raw, pair_info.cluster_distances(raw, 50),
+            pair_info.cluster_distances_smoothing(raw, 20, 2.0))]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.num == b.num and a.num > 0
+        for name in ("e1", "e2", "dist", "weight", "var"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert (x is None) == (y is None)
+            if x is not None:   # exact sums: the same bits on both
+                np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_gap_closing_and_repeat_resolution_card_equals_cpu(card):
+    g, c1, l1, c2, l2 = _paired_graph(20_000, 14)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        g2, joined = gap_closer.close_gaps(g, c1, l1, c2, l2, device=dev)
+        assert g2.device.type == dev.type
+        paths, lib_data = {}, []
+        contigs, scaffolds = assemble.repeat_resolution_multi(
+            g2, [(c1, l1, c2, l2, "pe")], with_scaffolds=True,
+            lib_data_out=lib_data, paths_out=paths, device=dev)
+        out[dev.type] = (joined, contigs, scaffolds, paths, lib_data)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][4][0]["pairs_used"] > 0
