@@ -49,7 +49,13 @@ prints no result):
    with qualities, correction, gap closing, repeat resolution) on both:
    identical contig and scaffold sequences, coverages within rtol 1e-4,
    identical GFA segments, links and P-lines, equal ``contigs.paths``,
-   ``scaffolds.paths`` and ``final.lib_data``;
+   ``scaffolds.paths`` and ``final.lib_data``; the same for ``-1/-2
+   --only-assembler --careful``, ``-1/-2 --only-assembler --sc`` and
+   ``-1/-2 --only-assembler --assembly-graph`` on the GFA the paired run
+   wrote on the card; and ``assemble_single_k(restricted_sequences=...)``
+   at k=21 on the reads plus a weak second allele (2 kb, 4 SNPs, half the
+   coverage), restricted by the 43-base windows centred on its SNPs:
+   identical contigs, every window kept;
 4. the full-size run: ``assemble_single_k`` at k=55 on a simulated
    E. coli-sized genome (4.6 Mb, seed 7, 40x, 100 bp paired reads,
    error rate 0.002, planted repeats), graded against the truth with
@@ -101,7 +107,35 @@ prints no result):
    (quality only), and the insert size, the wall, the stages, the
    mapping and repeat-resolution scopes, the peak device memory and the
    launches. The command runs once more under ``torch.profiler`` (the
-   card's busy share).
+   card's busy share). The mates and the GFA stay for phases 9 and 11;
+9. careful mode at full size: (a) ``correct_mismatches`` on phase 4's
+   k=55 graph with 1,000 planted base errors (edges over 1 kb, at least
+   200 bases from their ends and 500 apart, mirrored on the conjugate
+   edges), using phase 4's reads: every planted base must be fixed; the
+   other bases it changed are counted (expected 0), timed by scope, with
+   launches and peak memory; (b) phase 8's command with ``--careful``:
+   return 0, the quality bar on contigs and scaffolds, the kernel
+   launched at least twice inside ``correct_mismatches``;
+10. ``--sc`` at full size on uneven coverage: the 4.6 Mb genome, coverage
+   constant over 5 kb blocks, ``clip(40 * exp(0.8 z), 8, 200)`` a block,
+   phase 8's reads otherwise, as two FASTQ files with qualities;
+   ``cli.main(["-1", f1, "-2", f2, "-o", out, "--sc", "--checkpoints",
+   "none", "--trace-time"])`` must return 0, make 0 misassemblies and
+   reach genome fraction >= 0.95 on contigs (the wall, the stages, the
+   scopes ``rcc``, ``topology_block`` and ``hidden_ec``, NG50 and the
+   peak memory are printed); then ``assemble_single_k(...,
+   uneven_depth=True)`` at k=21 and k=55 on the same reads, the bound it
+   takes and its scope's time beside the spectrum fit's bound;
+11. the fork's paths at full size: (a) phase 4's reads plus a 20 kb
+   variant copy (40 SNPs 500 bases apart, at 20x) through
+   ``assemble_single_k`` at k=55 without and with the 40 windows of 111
+   bases centred on its SNPs as ``restricted_sequences``: with them every
+   window must lie in an alive edge (either strand), without them the
+   count kept is printed, beside the launches inside ``simplify`` and the
+   walls; (b) phase 8's reads with ``--only-assembler --assembly-graph``
+   on phase 8's GFA: return 0 and the quality bar on contigs and
+   scaffolds. Phases 9-11 run with the plain extraction refused on the
+   card.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 2 before printing any result. The last two lines of standard output are
@@ -163,6 +197,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # two operations an FMA), so that rate bounds them from above.
 INT_OPS_PER_S = 67e12 / 2
 COV_RTOL = 1e-4
+CAREFUL_ERRORS = 1000  # phase 9: bases planted in the k=55 graph
+SC_BLOCK = 5000        # phase 10: bases of constant coverage
+SC_FRACTION = 0.95     # phase 10: genome fraction bar of --sc contigs
+SC_SCOPES = ("rcc", "topology_block", "hidden_ec")
+VARIANT_SNPS = 40      # phase 11: SNPs of the variant copy, 500 bases apart
+VARIANT_AT = 1_000_000  # phase 11: where in the genome the copy starts
+# phase 11: the copy's coverage in the checked runs, the main copy's: at
+# half of it the erroneous-connection remover (which the restricted-edge
+# mask does not cover, in either package) takes some allele edges
+VARIANT_COVERAGE = FULL_COVERAGE
 PROFILE_TOP_KERNELS = 25
 PROFILE_TOP_HOST = 40
 
@@ -523,7 +567,7 @@ def canonical_contigs(contigs):
 
 def phase_gpu_vs_cpu(device) -> dict:
     from spades_for_blackbird_tpu_torch.pipeline import assemble
-    _, codes, lengths, quals = simulate_reads(20_000, 40.0, 100, seed=5)
+    genome, codes, lengths, quals = simulate_reads(20_000, 40.0, 100, seed=5)
     t0 = time.perf_counter()
     gpu = assemble.assemble_single_k(codes, lengths, 21, device=device)
     t_gpu = time.perf_counter() - t0
@@ -543,9 +587,74 @@ def phase_gpu_vs_cpu(device) -> dict:
     windows = contig_windows_vs_plain(
         device, [s for s, _ in gpu.contigs], codes.shape[1])
     hammer = hammer_gpu_vs_cpu(device, codes, lengths, quals)
+    restricted = restricted_gpu_vs_cpu(device, genome, codes, lengths)
     ladder = cli_gpu_vs_cpu(codes, lengths, quals)
     return {"contigs": len(a), "gpu_s": t_gpu, "cpu_s": t_cpu,
-            "contig_windows": windows, "hammer": hammer, "cli": ladder}
+            "contig_windows": windows, "hammer": hammer,
+            "restricted": restricted, "cli": ladder}
+
+
+def plant_snps(genome: str, lo: int, n: int, spacing: int):
+    """A copy of ``genome[lo:lo + n * spacing]`` with a substitution every
+    ``spacing`` bases, from ``spacing // 2`` on: (variant, SNP offsets in
+    it)."""
+    variant = list(genome[lo:lo + n * spacing])
+    snps = [spacing // 2 + i * spacing for i in range(n)]
+    for p in snps:
+        variant[p] = "ACGT"[("ACGT".index(variant[p]) + 1) % 4]
+    return "".join(variant), snps
+
+
+def allele_reads(variant: str, coverage: float, seed: int):
+    """Pairs of 100 bp reads of ``variant`` at ``coverage`` (phase 4's
+    error rate and insert): (codes (R, L) uint8, lengths (R,) int32)."""
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    v1, _, v2, _ = simulate.simulate_paired_reads(
+        variant, int(coverage * len(variant) / (2 * FULL_READ_LEN)),
+        read_len=FULL_READ_LEN, insert_mean=300.0, insert_sd=25.0,
+        error_rate=0.002, seed=seed)
+    codes = encode_fixed(v1 + v2)
+    return codes, np.full(codes.shape[0], FULL_READ_LEN, np.int32)
+
+
+def windows_kept(contigs, windows) -> int:
+    """How many ``windows`` (or their reverse complements) lie inside a
+    contig."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    return sum(any(w in s or dna.revcomp_str(w) in s for s, _ in contigs)
+               for w in windows)
+
+
+def restricted_gpu_vs_cpu(device, genome, codes, lengths) -> dict:
+    """``assemble_single_k(restricted_sequences=...)`` at k=21 on the card
+    and on the CPU, with a weak second allele (2 kb with 4 SNPs at half
+    the coverage) restricted by the 2k+1 windows centred on its SNPs."""
+    from spades_for_blackbird_tpu_torch.pipeline import assemble
+    variant, snps = plant_snps(genome, 6000, 4, 500)
+    vc, vl = allele_reads(variant, FULL_COVERAGE / 2, seed=55)
+    codes = np.concatenate([codes, vc])
+    lengths = np.concatenate([lengths, vl])
+    windows = [variant[p - 21:p + 22] for p in snps]
+    out, walls = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        res = assemble.assemble_single_k(codes, lengths, 21, device=dev,
+                                         restricted_sequences=windows)
+        walls[str(dev)] = time.perf_counter() - t0
+        out[str(dev)] = canonical_contigs(res.contigs)
+    a, b = out[str(device)], out["cpu"]
+    if [s for s, _ in a] != [s for s, _ in b] or not np.allclose(
+            [c for _, c in a], [c for _, c in b], rtol=COV_RTOL, atol=0.0):
+        raise AssertionError("restricted assembly differs between card and "
+                             "CPU")
+    kept = windows_kept(a, windows)
+    log(f"[gpu-vs-cpu] 20 kb k=21 restricted_sequences (4 allele windows): "
+        f"{len(a)} identical contigs, {kept} windows kept; card "
+        f"{walls[str(device)]:.2f} s, cpu {walls['cpu']:.2f} s")
+    if kept != len(windows):
+        raise AssertionError(f"{len(windows) - kept} restricted windows lost")
+    return {"contigs": len(a), "kept": kept, "gpu_s": walls[str(device)],
+            "cpu_s": walls["cpu"]}
 
 
 def hammer_gpu_vs_cpu(device, codes, lengths, quals) -> dict:
@@ -594,13 +703,22 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
         mates = [os.path.join(tmp, f"reads_{m}.fastq") for m in (1, 2)]
         write_fastq(mates[0], codes[:half], quals[:half])
         write_fastq(mates[1], codes[half:], quals[half:])
+        pair = ["-1", mates[0], "-2", mates[1]]
+        # the GFA-input run reads the graph the paired run wrote on the card
+        own_gfa = os.path.join(tmp, "paired", "cuda",
+                               "assembly_graph_with_scaffolds.gfa")
         runs = (("ladder", ["-s", plain, "-k", "21,33,55",
                             "--only-assembler"]),
                 ("default", ["-s", with_quals, "-k", "21,33,55"]),
                 ("ion", ["-s", with_quals, "--iontorrent",
                          "--only-error-correction"]),
-                ("paired", ["-1", mates[0], "-2", mates[1], "-k",
-                            "21,33,55"]))
+                ("paired", pair + ["-k", "21,33,55"]),
+                ("careful", pair + ["-k", "21,33,55", "--only-assembler",
+                                    "--careful"]),
+                ("sc", pair + ["-k", "21,33,55", "--only-assembler",
+                               "--sc"]),
+                ("gfa_input", pair + ["--only-assembler",
+                                      "--assembly-graph", own_gfa]))
         for name, extra in runs:
             walls = {}
             for dev in ("cuda", "cpu"):
@@ -638,13 +756,13 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
                     or pa != pb:
                 raise AssertionError(f"CLI {name} GFA segments, links or "
                                      f"paths differ between card and CPU")
-            if name == "paired":
+            if extra[0] == "-1":
                 for same in ("contigs.paths", "scaffolds.paths",
                              "final.lib_data"):
                     texts = [open(os.path.join(d, same)).read()
                              for d in (card, cpu)]
                     if texts[0] != texts[1] or not texts[0]:
-                        raise AssertionError(f"CLI paired {same} differs "
+                        raise AssertionError(f"CLI {name} {same} differs "
                                              f"between card and CPU")
             if not np.allclose([x[2] for x in sa], [x[2] for x in sb],
                                rtol=COV_RTOL, atol=1e-6):
@@ -654,7 +772,8 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
                             "links": len(la), "paths": len(pa),
                             "gpu_s": walls["cuda"], "cpu_s": walls["cpu"]}
             log(f"[gpu-vs-cpu] 20 kb {name} through the CLI "
-                f"({' '.join(x for x in extra if x not in mates)}): "
+                f"({' '.join(x for x in extra if x not in mates + [own_gfa])}"
+                f"): "
                 f"{len(a)} identical contigs, {len(sa)} identical segments, "
                 f"{len(la)} identical links, {len(pa)} identical P-lines; "
                 f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
@@ -726,8 +845,8 @@ def gfa_records(path: str):
 
 
 def phase_full(device) -> tuple[dict, tuple]:
-    """The full-size assembly; returns its record, and the genome and its
-    reads."""
+    """The full-size assembly; returns its record, and the genome, its
+    reads and the assembled graph."""
     import torch
     from spades_for_blackbird_tpu_torch.ops import kmer_cuda
     from spades_for_blackbird_tpu_torch.pipeline import assemble
@@ -772,13 +891,13 @@ def phase_full(device) -> tuple[dict, tuple]:
     used = int(torch.where(g.alive, g.seq_start + g.seq_len, 0).max())
     index_rows = edge_rows_vs_plain(device, g.seq_flat, used, FULL_K + 1,
                                     timed=True)
-    del res, g
+    del res
     return {"genome_size": FULL_GENOME, "reads": int(codes.shape[0]),
             "k": FULL_K, "wall_s": wall, "sim_s": sim_s,
             "peak_bytes": int(peak), "launches": launches,
             "scopes_s": scopes, "stats": res_stats,
             "contig_windows": windows, "index_rows": index_rows,
-            "assess": report.to_dict()}, (genome, codes, lengths, quals)
+            "assess": report.to_dict()}, (genome, codes, lengths, quals, g)
 
 
 def busy_union_us(spans: list[tuple[float, float]]) -> float:
@@ -1186,13 +1305,18 @@ def launches_inside(kernel, targets):
             setattr(mod, name, fn)
 
 
-def quality(fasta_path: str, genome: str, strip_n: bool = False):
+def assess_fasta(fasta_path: str, genome: str, strip_n: bool = False):
     """``utils/assess`` of a FASTA against the truth (scaffolds with their
-    N's removed, as scale_bench.py grades them); raises below the bar."""
+    N's removed, as scale_bench.py grades them)."""
     from spades_for_blackbird_tpu_torch.utils import assess
     seqs = [s.replace("N", "") if strip_n else s
             for s, _ in read_fasta(fasta_path)]
-    report = assess.assess(seqs, genome)
+    return assess.assess(seqs, genome)
+
+
+def quality(fasta_path: str, genome: str, strip_n: bool = False):
+    """``assess_fasta``; raises below the bar."""
+    report = assess_fasta(fasta_path, genome, strip_n)
     if report.genome_fraction < 0.97 or report.misassemblies != 0:
         raise AssertionError(
             f"quality bar missed on {os.path.basename(fasta_path)}: genome "
@@ -1201,107 +1325,105 @@ def quality(fasta_path: str, genome: str, strip_n: bool = False):
     return report
 
 
-def phase_paired(device, genome, codes, lengths, quals) -> dict:
+def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
     """The paired default command on the 4.6 Mb simulation: correction,
     the ladder, gap closing and paired repeat resolution, from two FASTQ
-    files to contigs and scaffolds."""
+    files to contigs and scaffolds. The mates and the profiled run's
+    output stay in ``tmp`` for phases 9 and 11."""
     import torch
     from spades_for_blackbird_tpu_torch import cli
     from spades_for_blackbird_tpu_torch.ops import kmer_cuda
     from spades_for_blackbird_tpu_torch.pipeline import assemble, gap_closer
 
     kernel = kmer_cuda.extract_sort_keys
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        half = codes.shape[0] // 2  # the first half are the first mates
-        mates = [os.path.join(tmp, f"reads_{m}.fastq") for m in (1, 2)]
+    half = codes.shape[0] // 2  # the first half are the first mates
+    mates = [os.path.join(tmp, f"reads_{m}.fastq") for m in (1, 2)]
+    t0 = time.perf_counter()
+    write_fastq(mates[0], codes[:half], quals[:half])
+    write_fastq(mates[1], codes[half:], quals[half:])
+    write_s = time.perf_counter() - t0
+    log(f"[paired] wrote 2 x {half} reads with qualities, "
+        f"{sum(os.path.getsize(m) for m in mates) / 1e9:.2f} GB of "
+        f"FASTQ in {write_s:.1f} s")
+    argv = ["-1", mates[0], "-2", mates[1], "--checkpoints", "none",
+            "--trace-time"]
+    out = os.path.join(tmp, "out")
+    with plain_extraction_refused(), launches_inside(
+            kernel, [(gap_closer, "close_gaps"),
+                     (assemble, "repeat_resolution_multi")]) as inside:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernel.launches = 0
         t0 = time.perf_counter()
-        write_fastq(mates[0], codes[:half], quals[:half])
-        write_fastq(mates[1], codes[half:], quals[half:])
-        write_s = time.perf_counter() - t0
-        log(f"[paired] wrote 2 x {half} reads with qualities, "
-            f"{sum(os.path.getsize(m) for m in mates) / 1e9:.2f} GB of "
-            f"FASTQ in {write_s:.1f} s")
-        argv = ["-1", mates[0], "-2", mates[1], "--checkpoints", "none",
-                "--trace-time"]
-        out = os.path.join(tmp, "out")
-        with plain_extraction_refused(), launches_inside(
-                kernel, [(gap_closer, "close_gaps"),
-                         (assemble, "repeat_resolution_multi")]) as inside:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(device)
-            kernel.launches = 0
-            t0 = time.perf_counter()
-            rc = cli.main(argv + ["-o", out])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = kernel.launches
-            peak = torch.cuda.max_memory_allocated(device)
-        if rc != 0:
-            raise AssertionError(f"cli.main returned {rc}")
-        spans = trace_seconds(os.path.join(out, "spades_time_trace.json"))
-        stages = {name: spans.get(f"stage:{name}", 0.0) for name in (
-            "read_conversion", "error_correction", "k21", "k33", "k55",
-            "gap_closing", "repeat_resolution", "contig_output")}
-        log(f"[paired] cli.main -1 -2 {' '.join(argv[4:])}: {wall:.2f} s, "
-            f"peak device memory {peak / 2**30:.2f} GiB, kernel launches "
-            f"{launches} (gap closing {inside['close_gaps']}, repeat "
-            f"resolution {inside['repeat_resolution_multi']})")
-        for name, sec in stages.items():
-            log(f"[paired] stage {name}: {sec:.3f} s")
-        for name in RR_SCOPES + ("coverage_model_fit", "condense",
-                                 "simplify", "phase_checkpoint"):
-            log(f"[paired] scope {name}: {spans.get(name, 0.0):.3f} s")
-        with open(os.path.join(out, "final.lib_data")) as f:
-            lib_data = f.read()
-        log("[paired] final.lib_data: " + " ".join(lib_data.split()))
-        with open(os.path.join(out, "spades.log")) as f:
-            for line in f:
-                if "closed" in line or "resolved" in line or "lib 0" in line:
-                    log(f"[paired] log: {line.strip()}")
-        reports = {}
-        for name, strip_n in (("contigs", False), ("scaffolds", True)):
-            rep = quality(os.path.join(out, f"{name}.fasta"), genome, strip_n)
-            reports[name] = rep.to_dict()
-            log(f"[paired] {name}: {rep.n_contigs} sequences, NG50 "
-                f"{rep.ng50} (the JAX package's record of this simulation: "
-                f"{JAX_NG50[name]}), genome fraction "
-                f"{rep.genome_fraction:.5f}, misassemblies "
-                f"{rep.misassemblies}")
-        for name, n in inside.items():
-            if n <= 0:
-                raise AssertionError(f"{name} never launched the kernel")
-        for name in ("contigs.paths", "scaffolds.paths",
-                     "scaffold_graph.scg", "assembly_graph.fastg"):
-            if not os.path.getsize(os.path.join(out, name)):
-                raise AssertionError(f"{name} is empty")
-        if not gfa_records(os.path.join(
-                out, "assembly_graph_with_scaffolds.gfa"))[2]:
-            raise AssertionError("the GFA holds no scaffold P-line")
+        rc = cli.main(argv + ["-o", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel.launches
+        peak = torch.cuda.max_memory_allocated(device)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    spans = trace_seconds(os.path.join(out, "spades_time_trace.json"))
+    stages = {name: spans.get(f"stage:{name}", 0.0) for name in (
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "repeat_resolution", "contig_output")}
+    log(f"[paired] cli.main -1 -2 {' '.join(argv[4:])}: {wall:.2f} s, "
+        f"peak device memory {peak / 2**30:.2f} GiB, kernel launches "
+        f"{launches} (gap closing {inside['close_gaps']}, repeat "
+        f"resolution {inside['repeat_resolution_multi']})")
+    for name, sec in stages.items():
+        log(f"[paired] stage {name}: {sec:.3f} s")
+    for name in RR_SCOPES + ("coverage_model_fit", "condense",
+                             "simplify", "phase_checkpoint"):
+        log(f"[paired] scope {name}: {spans.get(name, 0.0):.3f} s")
+    with open(os.path.join(out, "final.lib_data")) as f:
+        lib_data = f.read()
+    log("[paired] final.lib_data: " + " ".join(lib_data.split()))
+    with open(os.path.join(out, "spades.log")) as f:
+        for line in f:
+            if "closed" in line or "resolved" in line or "lib 0" in line:
+                log(f"[paired] log: {line.strip()}")
+    reports = {}
+    for name, strip_n in (("contigs", False), ("scaffolds", True)):
+        rep = quality(os.path.join(out, f"{name}.fasta"), genome, strip_n)
+        reports[name] = rep.to_dict()
+        log(f"[paired] {name}: {rep.n_contigs} sequences, NG50 "
+            f"{rep.ng50} (the JAX package's record of this simulation: "
+            f"{JAX_NG50[name]}), genome fraction "
+            f"{rep.genome_fraction:.5f}, misassemblies "
+            f"{rep.misassemblies}")
+    for name, n in inside.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched the kernel")
+    for name in ("contigs.paths", "scaffolds.paths",
+                 "scaffold_graph.scg", "assembly_graph.fastg"):
+        if not os.path.getsize(os.path.join(out, name)):
+            raise AssertionError(f"{name} is empty")
+    if not gfa_records(os.path.join(
+            out, "assembly_graph_with_scaffolds.gfa"))[2]:
+        raise AssertionError("the GFA holds no scaffold P-line")
 
-        # once more under torch.profiler: the card's busy share of the run
-        shutil.rmtree(out)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rc = cli.main(argv + ["-o", out])
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"cli.main under the profiler returned {rc}")
-        rows, device_sum, busy = device_table(prof)
-        del prof
-        log(f"[paired] under torch.profiler: {prof_wall:.3f} s, device busy "
-            f"union {busy:.3f} s"
-            + (f" = {busy / prof_wall:.1%}" if rows else
-               " (no device span seen: not measured)"))
-        for name, sec, n in rows[:15]:
-            log(f"[paired] profile {sec:8.4f} s {n:7d}x  {name[:120]}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # once more under torch.profiler: the card's busy share of the run
+    shutil.rmtree(out)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-o", out])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main under the profiler returned {rc}")
+    rows, device_sum, busy = device_table(prof)
+    del prof
+    log(f"[paired] under torch.profiler: {prof_wall:.3f} s, device busy "
+        f"union {busy:.3f} s"
+        + (f" = {busy / prof_wall:.1%}" if rows else
+           " (no device span seen: not measured)"))
+    for name, sec, n in rows[:15]:
+        log(f"[paired] profile {sec:8.4f} s {n:7d}x  {name[:120]}")
     return {"reads": int(codes.shape[0]), "wall_s": wall,
+            "mates": mates, "out": out,
             "fastq_write_s": write_s, "launches": launches,
             "launches_inside": dict(inside), "peak_bytes": int(peak),
             "stages_s": stages, "spans_s": spans, "lib_data": lib_data,
@@ -1312,6 +1434,379 @@ def phase_paired(device, genome, codes, lengths, quals) -> dict:
                         else None,
                         "device_summed_s": device_sum,
                         "device_kernels": rows[:PROFILE_TOP_KERNELS]}}
+
+
+def stage_seconds(out: str, names) -> dict[str, float]:
+    """Seconds of the named stages in the time trace of a CLI run."""
+    spans = trace_seconds(os.path.join(out, "spades_time_trace.json"))
+    return {name: spans.get(f"stage:{name}", 0.0) for name in names}, spans
+
+
+def run_cli(device, argv, kernel, targets=()):
+    """``cli.main(argv)`` with the launch count at 0 before it: (wall s,
+    launches, launches inside each of ``targets``, peak device bytes);
+    raises unless it returns 0."""
+    import torch
+    from spades_for_blackbird_tpu_torch import cli
+    with launches_inside(kernel, targets) as inside:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel.launches
+    if rc != 0:
+        raise AssertionError(f"cli.main {' '.join(argv)} returned {rc}")
+    return wall, launches, dict(inside), torch.cuda.max_memory_allocated(
+        device)
+
+
+def plant_errors(g, n: int, seed: int):
+    """``g`` with ``n`` bases changed in edges longer than 1 kb, each at
+    least 200 bases from the edge's ends and 500 from the one before,
+    mirrored on the conjugate edge (two flat slots an error). Returns
+    (graph, planted slots (2n,) int64 tensor)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    alive = g.alive.cpu().numpy() & (np.arange(g.capacity)
+                                     < int(g.num_edges))
+    start, length = g.seq_start.cpu().numpy(), g.seq_len.cpu().numpy()
+    conj = g.conj.cpu().numpy()
+    flat = g.seq_flat.cpu().numpy().copy()
+    slots = []
+    for e in np.nonzero(alive & (length > 1000))[0]:
+        if conj[e] <= e or len(slots) == 2 * n:
+            continue
+        for p in range(200 + int(rng.integers(0, 300)),
+                       int(length[e]) - 200, 500):
+            if len(slots) == 2 * n:
+                break
+            s, cs = int(start[e]) + p, int(start[conj[e]]) + \
+                int(length[e]) - 1 - p
+            flat[s] = (flat[s] + int(rng.integers(1, 4))) % 4
+            flat[cs] = 3 - flat[s]
+            slots += [s, cs]
+    if len(slots) != 2 * n:
+        raise AssertionError(f"room for {len(slots) // 2} planted errors, "
+                             f"not {n}")
+    return (g._replace(seq_flat=torch.from_numpy(flat).to(g.device)),
+            torch.tensor(slots, device=g.device))
+
+
+def phase_careful(device, genome, graph, codes, lengths, mates, tmp) -> dict:
+    """Careful mode at full size: (a) ``correct_mismatches`` on phase 4's
+    k=55 graph with planted errors, using phase 4's reads; (b) the paired
+    default command of phase 8 with ``--careful``."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.pipeline import mismatch_correction
+    from spades_for_blackbird_tpu_torch.utils import timetrace
+
+    kernel = kmer_cuda.extract_sort_keys
+    bad, slots = plant_errors(graph, CAREFUL_ERRORS, seed=9)
+    with plain_extraction_refused():
+        c = torch.from_numpy(codes).to(device)
+        ln = torch.from_numpy(lengths).to(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        before_mem = torch.cuda.memory_allocated(device)
+        timetrace.enable()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        fixed, n = mismatch_correction.correct_mismatches(bad, c, ln,
+                                                          device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel.launches
+        timetrace.disable()
+        peak = torch.cuda.max_memory_allocated(device) - before_mem
+        scopes = scope_seconds(timetrace.events())
+        del c, ln
+        changed = fixed.seq_flat != graph.seq_flat
+        unfixed = int(changed[slots].sum())
+        changed[slots] = False
+        others = int(changed.sum())
+        log(f"[careful] correct_mismatches on the k={FULL_K} graph "
+            f"({int(graph.seq_flat.shape[0])} flat bases) with "
+            f"{CAREFUL_ERRORS} planted errors ({slots.numel()} slots), "
+            f"{codes.shape[0]} reads: {wall:.3f} s, {n} bases changed, "
+            f"planted slots left wrong {unfixed}, other bases changed "
+            f"{others}, kernel launches {launches}, peak device memory "
+            f"{peak / 2**30:.2f} GiB above the reads")
+        for name in ("mc_build_index", "mc_map_vote", "mc_fix"):
+            log(f"[careful] scope {name}: {scopes.get(name, 0.0):.3f} s")
+        if unfixed:
+            raise AssertionError(f"{unfixed} planted slots left wrong")
+        if launches < 2:
+            raise AssertionError("correct_mismatches launched the kernel "
+                                 f"{launches} times")
+        del fixed, bad, changed
+        torch.cuda.empty_cache()
+
+        # (b) the paired default command with --careful
+        out = os.path.join(tmp, "careful")
+        argv = ["-1", mates[0], "-2", mates[1], "--careful",
+                "--checkpoints", "none", "--trace-time", "-o", out]
+        cli_wall, cli_launches, inside, cli_peak = run_cli(
+            device, argv, kernel,
+            [(mismatch_correction, "correct_mismatches")])
+    stages, spans = stage_seconds(out, (
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "mismatch_correction", "repeat_resolution",
+        "contig_output"))
+    with open(os.path.join(out, "spades.log")) as f:
+        corrected = [int(line.split("corrected ")[1].split()[0])
+                     for line in f if "mismatching bases" in line]
+    log(f"[careful] cli.main -1 -2 --careful: {cli_wall:.2f} s, peak device "
+        f"memory {cli_peak / 2**30:.2f} GiB, kernel launches {cli_launches} "
+        f"({inside['correct_mismatches']} inside correct_mismatches), "
+        f"corrected bases {corrected}")
+    for name, sec in stages.items():
+        log(f"[careful] stage {name}: {sec:.3f} s")
+    for name in ("mc_build_index", "mc_map_vote", "mc_fix"):
+        log(f"[careful] cli scope {name}: {spans.get(name, 0.0):.3f} s")
+    if inside["correct_mismatches"] < 2:
+        raise AssertionError("the careful stage launched the kernel "
+                             f"{inside['correct_mismatches']} times")
+    reports = {}
+    for name, strip_n in (("contigs", False), ("scaffolds", True)):
+        rep = quality(os.path.join(out, f"{name}.fasta"), genome, strip_n)
+        reports[name] = rep.to_dict()
+        log(f"[careful] {name}: {rep.n_contigs} sequences, NG50 {rep.ng50}, "
+            f"genome fraction {rep.genome_fraction:.5f}, misassemblies "
+            f"{rep.misassemblies}")
+    return {"planted": CAREFUL_ERRORS, "wall_s": wall, "changed": n,
+            "unfixed": unfixed, "others_changed": others,
+            "launches": launches, "peak_bytes": int(peak),
+            "scopes_s": scopes, "cli_wall_s": cli_wall,
+            "cli_launches": cli_launches,
+            "cli_launches_inside": inside["correct_mismatches"],
+            "cli_peak_bytes": int(cli_peak), "cli_stages_s": stages,
+            "corrected": corrected, "assess": reports}
+
+
+def simulate_uneven(genome: str, seed: int):
+    """MDA-like reads of ``genome``: coverage constant over blocks of
+    ``SC_BLOCK`` bases, ``clip(40 * exp(0.8 z), 8, 200)`` a block with z
+    standard normal; phase 8's read length, error rate and FR insert
+    (300 +- 25), qualities as ``utils/simulate.py`` gives them. Returns
+    (block coverages, first mates, second mates), each mate set as
+    (codes (R, L) uint8, quals (R, L) uint8 phred+33)."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    rng = np.random.default_rng(seed)
+    g = dna.encode_str(genome)
+    L, rl = len(g), FULL_READ_LEN
+    n_blocks = -(-L // SC_BLOCK)
+    cov = np.clip(40.0 * np.exp(0.8 * rng.standard_normal(n_blocks)), 8.0,
+                  200.0)
+    sizes = np.minimum(SC_BLOCK, L - SC_BLOCK * np.arange(n_blocks))
+    weight = cov * sizes
+    n_pairs = int(weight.sum() / (2 * rl))
+    block = rng.choice(n_blocks, n_pairs, p=weight / weight.sum())
+    ins = np.clip(rng.normal(300.0, 25.0, n_pairs).astype(np.int64), rl,
+                  None)
+    start = np.minimum(block * SC_BLOCK + rng.integers(0, sizes[block]),
+                       L - ins)
+    offs = np.arange(rl)
+    r1 = g[start[:, None] + offs]
+    r2 = 3 - g[(start + ins - rl)[:, None] + offs][:, ::-1]
+    flip = rng.random(n_pairs) < 0.5   # fragments on the reverse strand
+    r1, r2 = (np.where(flip[:, None], 3 - r2[:, ::-1], r1),
+              np.where(flip[:, None], 3 - r1[:, ::-1], r2))
+    mates = []
+    for reads in (r1, r2):
+        err = rng.random(reads.shape) < 0.002
+        reads = np.where(err, (reads + rng.integers(1, 4, reads.shape)) % 4,
+                         reads).astype(np.uint8)
+        qual = np.where(rng.random(reads.shape) < 0.01, 12, 38)
+        qual = np.where(err & (rng.random(reads.shape) < 0.7), 8, qual)
+        mates.append((reads, (qual + 33).astype(np.uint8)))
+    return cov, mates[0], mates[1]
+
+
+def phase_sc(device, genome, tmp) -> dict:
+    """Single-cell mode at full size on uneven coverage: the ``--sc``
+    command line from two FASTQ files, then ``assemble_single_k(...,
+    uneven_depth=True)`` at k=21 and k=55 on the same reads."""
+    import torch
+    from spades_for_blackbird_tpu_torch.kmers import counter, coverage_model
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.pipeline import assemble
+    from spades_for_blackbird_tpu_torch.utils import timetrace
+
+    kernel = kmer_cuda.extract_sort_keys
+    t0 = time.perf_counter()
+    cov, (c1, q1), (c2, q2) = simulate_uneven(genome, seed=8)
+    mates = [os.path.join(tmp, f"sc_{m}.fastq") for m in (1, 2)]
+    write_fastq(mates[0], c1, q1)
+    write_fastq(mates[1], c2, q2)
+    log(f"[sc] {len(cov)} blocks of {SC_BLOCK} bases at coverage "
+        f"{cov.min():.1f}-{cov.max():.1f} (median {np.median(cov):.1f}, "
+        f"mean {cov.mean():.1f}): 2 x {c1.shape[0]} reads simulated and "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "sc")
+    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--sc",
+            "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, _, peak = run_cli(device, argv, kernel)
+    stages, spans = stage_seconds(out, (
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "repeat_resolution", "contig_output"))
+    log(f"[sc] cli.main -1 -2 --sc: {wall:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, kernel launches {launches}")
+    for name, sec in stages.items():
+        log(f"[sc] stage {name}: {sec:.3f} s")
+    for name in SC_SCOPES + ("simplify", "coverage_model_fit", "condense"):
+        log(f"[sc] scope {name} (all rungs): {spans.get(name, 0.0):.3f} s")
+    reports = {}
+    for name, strip_n in (("contigs", False), ("scaffolds", True)):
+        rep = assess_fasta(os.path.join(out, f"{name}.fasta"), genome,
+                           strip_n)
+        reports[name] = rep.to_dict()
+        log(f"[sc] {name}: {rep.n_contigs} sequences, NG50 {rep.ng50}, "
+            f"genome fraction {rep.genome_fraction:.5f}, misassemblies "
+            f"{rep.misassemblies}")
+    if reports["contigs"]["misassemblies"] != 0 or \
+            reports["contigs"]["genome_fraction"] < SC_FRACTION:
+        raise AssertionError(f"--sc missed its bar on contigs: "
+                             f"{reports['contigs']}")
+
+    codes = np.concatenate([c1, c2])
+    lengths = np.full(codes.shape[0], FULL_READ_LEN, np.int32)
+    uneven = {}
+    with plain_extraction_refused():
+        for k in (21, FULL_K):
+            timetrace.enable()
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            res = assemble.assemble_single_k(codes, lengths, k,
+                                             uneven_depth=True,
+                                             device=device)
+            torch.cuda.synchronize()
+            k_wall = time.perf_counter() - t0
+            timetrace.disable()
+            sc = scope_seconds(timetrace.events())
+            uneven[k] = {"uneven_ec_bound": res.genomic_info.ec_bound,
+                         "fit_ec_bound": None, "wall_s": k_wall,
+                         "launches": kernel.launches,
+                         "uneven_ec_bound_s": sc.get("uneven_ec_bound", 0.0),
+                         "coverage_model_fit_s": sc.get("coverage_model_fit",
+                                                        0.0),
+                         "stats": res.stats}
+            del res
+        # the spectrum fit's bound on the same reads, for comparison
+        c = torch.from_numpy(codes).to(device)
+        ln = torch.from_numpy(lengths).to(device)
+        for k in (21, FULL_K):
+            kp1 = counter.trim_table(counter.count_kmers_chunked(c, ln,
+                                                                 k + 1))
+            uneven[k]["fit_ec_bound"] = \
+                coverage_model.fit_coverage_model_hist(
+                    coverage_model.count_spectrum_device(
+                        kp1.counts, kp1.num)).ec_bound
+            del kp1
+            log(f"[sc] assemble_single_k k={k} uneven_depth=True: "
+                f"{uneven[k]['wall_s']:.2f} s, {uneven[k]['launches']} "
+                f"launches; uneven_ec_bound {uneven[k]['uneven_ec_bound']:.4f}"
+                f" in {uneven[k]['uneven_ec_bound_s']:.3f} s (scope "
+                f"uneven_ec_bound), the spectrum fit's ec_bound "
+                f"{uneven[k]['fit_ec_bound']:.4f}; {uneven[k]['stats']}")
+        del c, ln
+    return {"blocks": len(cov), "block_cov_min": float(cov.min()),
+            "block_cov_max": float(cov.max()),
+            "block_cov_mean": float(cov.mean()), "reads": 2 * c1.shape[0],
+            "wall_s": wall, "launches": launches, "peak_bytes": int(peak),
+            "stages_s": stages, "spans_s": spans, "assess": reports,
+            "uneven": uneven}
+
+
+def phase_fork(device, genome, codes, lengths, mates, gfa_path, tmp) -> dict:
+    """The fork's paths at full size: (a) ``assemble_single_k`` at k=55
+    on phase 4's reads plus a weak second allele of 20 kb (40 SNPs 500
+    bases apart, at half the coverage), without and with the 2k+1 = 111
+    base windows centred on its SNPs as restricted sequences; (b) the
+    paired reads of phase 8 with ``--only-assembler --assembly-graph`` on
+    phase 8's GFA."""
+    import torch
+    from spades_for_blackbird_tpu_torch.io import fasta
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.pipeline import assemble, gap_closer
+    from spades_for_blackbird_tpu_torch.simplify import runner
+
+    kernel = kmer_cuda.extract_sort_keys
+    variant, snps = plant_snps(genome, VARIANT_AT, VARIANT_SNPS, 500)
+    windows = [variant[p - FULL_K:p + FULL_K + 1] for p in snps]
+    runs = {}
+    with plain_extraction_refused(), launches_inside(
+            kernel, [(runner, "simplify_graph")]) as inside:
+        for name, cov, restricted in (
+                ("free", VARIANT_COVERAGE, None),
+                ("restricted", VARIANT_COVERAGE, windows),
+                ("restricted_half", FULL_COVERAGE / 2, windows)):
+            vc, vl = allele_reads(variant, cov, seed=10)
+            all_codes = np.concatenate([codes, vc])
+            all_lengths = np.concatenate([lengths, vl])
+            torch.cuda.synchronize()
+            kernel.launches = 0
+            inside["simplify_graph"] = 0
+            t0 = time.perf_counter()
+            res = assemble.assemble_single_k(
+                all_codes, all_lengths, FULL_K, device=device,
+                restricted_sequences=restricted)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            edges = fasta.graph_contigs(res.graph, min_length=FULL_K + 1)
+            runs[name] = {"wall_s": wall, "allele_coverage": cov,
+                          "allele_reads": int(len(vc)),
+                          "launches": kernel.launches,
+                          "launches_in_simplify": inside["simplify_graph"],
+                          "kept": windows_kept(edges, windows),
+                          "ec_bound": res.genomic_info.ec_bound,
+                          "stats": res.stats}
+            del res, edges
+            log(f"[fork] assemble_single_k k={FULL_K}, {len(all_codes)} "
+                f"reads ({len(vc)} of the allele at {cov:g}x), {name}: "
+                f"{wall:.2f} s, kernel launches {runs[name]['launches']} "
+                f"({runs[name]['launches_in_simplify']} inside simplify), "
+                f"ec_bound {runs[name]['ec_bound']:.3f}, allele windows "
+                f"kept {runs[name]['kept']} of {len(windows)}")
+    # the mask covers the bulge passes only, as in the reference: at half
+    # the main copy's coverage the erroneous-connection remover may take
+    # an allele edge; that run is printed, the check is on the other
+    if runs["restricted"]["kept"] != len(windows):
+        raise AssertionError(f"{len(windows) - runs['restricted']['kept']} "
+                             f"restricted windows lost")
+
+    # (b) GFA input: phase 8's graph and its reads
+    out = os.path.join(tmp, "gfa_input")
+    argv = ["-1", mates[0], "-2", mates[1], "--only-assembler",
+            "--assembly-graph", gfa_path, "-o", out, "--checkpoints", "none",
+            "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, inside, peak = run_cli(
+            device, argv, kernel, [(gap_closer, "close_gaps"),
+                                   (assemble, "repeat_resolution_multi")])
+    stages, _ = stage_seconds(out, ("read_conversion", "load_graph",
+                                    "gap_closing", "repeat_resolution",
+                                    "contig_output"))
+    log(f"[fork] cli.main -1 -2 --only-assembler --assembly-graph: "
+        f"{wall:.2f} s, peak device memory {peak / 2**30:.2f} GiB, kernel "
+        f"launches {launches} {inside}")
+    for name, sec in stages.items():
+        log(f"[fork] stage {name}: {sec:.3f} s")
+    reports = {}
+    for name, strip_n in (("contigs", False), ("scaffolds", True)):
+        rep = quality(os.path.join(out, f"{name}.fasta"), genome, strip_n)
+        reports[name] = rep.to_dict()
+        log(f"[fork] --assembly-graph {name}: {rep.n_contigs} sequences, "
+            f"NG50 {rep.ng50}, genome fraction {rep.genome_fraction:.5f}, "
+            f"misassemblies {rep.misassemblies}")
+    return {"windows": len(windows), "runs": runs,
+            "gfa_wall_s": wall, "gfa_launches": launches,
+            "gfa_launches_inside": inside, "gfa_peak_bytes": int(peak),
+            "gfa_stages_s": stages, "gfa_assess": reports}
 
 
 def main(argv=None) -> int:
@@ -1338,23 +1833,35 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     record = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         record["build"] = phase_build()
         record["kernel_vs_plain"] = phase_kernel_vs_plain(device)
         record["gpu_vs_cpu"] = phase_gpu_vs_cpu(device)
-        record["full"], (genome, codes, lengths, quals) = phase_full(device)
+        record["full"], (genome, codes, lengths, quals, graph) = \
+            phase_full(device)
         record["profile"] = phase_profile(device, codes, lengths,
                                           args.host_profile)
         record["ladder"] = phase_ladder(device)
         record["hammer"] = phase_hammer(device, genome, codes, lengths,
                                         quals)
         record["paired"] = phase_paired(device, genome, codes, lengths,
-                                        quals)
+                                        quals, tmp)
+        mates = record["paired"]["mates"]
+        record["careful"] = phase_careful(device, genome, graph, codes,
+                                          lengths, mates, tmp)
+        del graph
+        record["sc"] = phase_sc(device, genome, tmp)
+        record["fork"] = phase_fork(
+            device, genome, codes, lengths, mates, os.path.join(
+                record["paired"]["out"], "assembly_graph_with_scaffolds.gfa"),
+            tmp)
     except Exception:  # any failed phase fails the smoke
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -1371,17 +1878,35 @@ def main(argv=None) -> int:
                 + [index_rows, record["full"]["index_rows"]])
     hammer = record["hammer"]
     paired = record["paired"]
-    launches = (record["full"]["launches"] + record["ladder"]["launches"]
-                + hammer["launches"] + hammer["cli_launches"]
-                + paired["launches"])
-    log(f"kernel launches on the main paths: single K "
-        f"{record['full']['launches']}, ladder through the CLI "
-        f"{record['ladder']['launches']}, correct_reads "
-        f"{hammer['launches']}, the default command "
-        f"{hammer['cli_launches']}, the paired default command "
-        f"{paired['launches']} (gap closing "
-        f"{paired['launches_inside']['close_gaps']}, repeat resolution "
-        f"{paired['launches_inside']['repeat_resolution_multi']})")
+    careful, sc, fork = record["careful"], record["sc"], record["fork"]
+    sites = {
+        "single_k": record["full"]["launches"],
+        "ladder_cli": record["ladder"]["launches"],
+        "correct_reads": hammer["launches"],
+        "default_cli": hammer["cli_launches"],
+        "paired_cli": paired["launches"],
+        "gap_closing": paired["launches_inside"]["close_gaps"],
+        "repeat_resolution":
+            paired["launches_inside"]["repeat_resolution_multi"],
+        "correct_mismatches": careful["launches"],
+        "careful_cli": careful["cli_launches"],
+        "careful_stage": careful["cli_launches_inside"],
+        "sc_cli": sc["launches"],
+        "uneven_single_k": sum(u["launches"] for u in sc["uneven"].values()),
+        "restricted_single_k": fork["runs"]["restricted"]["launches"],
+        "restricted_in_simplify":
+            fork["runs"]["restricted"]["launches_in_simplify"],
+        "free_single_k": fork["runs"]["free"]["launches"],
+        "gfa_input_cli": fork["gfa_launches"]}
+    # the main paths' runs; gap_closing, repeat_resolution,
+    # careful_stage and restricted_in_simplify count launches inside them
+    launches = sum(sites[name] for name in (
+        "single_k", "ladder_cli", "correct_reads", "default_cli",
+        "paired_cli", "correct_mismatches", "careful_cli", "sc_cli",
+        "uneven_single_k", "restricted_single_k", "free_single_k",
+        "gfa_input_cli"))
+    log("kernel launches on the main paths: " + ", ".join(
+        f"{name} {n}" for name, n in sites.items()))
     strand_row = next(r for r in rows if r.get("strand_ms") is not None
                       and r["R"] == hammer["reads"])
     mapper_row = next(r for r in rows if r["mapper"])
@@ -1415,15 +1940,7 @@ def main(argv=None) -> int:
                             for key in ("R", "L", "k", "last_row",
                                         "strand_ms", "wrapper_ms",
                                         "plain_ms", "bound_ms", "bound_by")},
-        "launch_sites": {
-            "single_k": record["full"]["launches"],
-            "ladder_cli": record["ladder"]["launches"],
-            "correct_reads": hammer["launches"],
-            "default_cli": hammer["cli_launches"],
-            "paired_cli": paired["launches"],
-            "gap_closing": paired["launches_inside"]["close_gaps"],
-            "repeat_resolution":
-                paired["launches_inside"]["repeat_resolution_multi"]},
+        "launch_sites": sites,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The command line: the ``spades.py`` surface of the port.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/cli.py`` (the
+PyTorch counterpart of the JAX package's ``cli.py`` (the
 reference's top-level orchestration, assembler/spades.py:593 main, options
 at spades_pipeline/options_parser.py, checkpointing semantics of
 --continue/--restart-from/--stop-after at spades.py:179-418): parse
@@ -13,9 +13,11 @@ spades.log, params.json, saves/).
 The run is on a CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits 1 before it reads anything. Stages whose
 modules are not ported yet hold their places in the stage list; a run
-that would reach one exits 2 before any work, naming them: ``--careful``,
-every mode but isolate (and ``--large-genome``), long reads
-(``--pacbio``, ``--nanopore``, ``--sanger``) and ``--assembly-graph``.
+that would reach one exits 2 before any work, naming them: every mode
+but isolate, ``--sc`` and ``--large-genome``, and long reads
+(``--pacbio``, ``--nanopore``, ``--sanger``). ``--careful`` adds mismatch
+correction after gap closing; ``--assembly-graph`` loads a GFA graph in
+place of the K ladder.
 
 Paired libraries (``-1/-2``, ``--12``, ``--mp-1/--mp-2``) add gap
 closing and paired repeat resolution (exSPAnder path extension, loop
@@ -117,8 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(moleculo_mode.info)")
     p.add_argument("--large-genome", dest="large_genome",
                    action="store_true",
-                   help="large-genome mode (2015 scaffold-graph "
-                        "anchoring)")
+                   help="large-genome mode; accepted for the reference's "
+                        "command line: its overlay names the 2015 "
+                        "scaffolding mode, which neither this package nor "
+                        "the JAX package reads yet, so it changes nothing")
     p.add_argument("--iontorrent", action="store_true",
                    help="IonTorrent data: homopolymer-space error "
                         "correction (ionhammer)")

@@ -1,6 +1,6 @@
 // Canonical k-mer extraction for Hopper (sm_90a), written as sort keys.
 //
-// Replaces the TPU kernel spades_for_blackbird_tpu/ops/kmer_pallas.py::_kernel
+// Replaces the TPU kernel ops/kmer_pallas.py::_kernel of the JAX package
 // (with its helper _revcomp_words, launched by _fused_raw through
 // pl.pallas_call). For every k-window of every read it forms the canonical
 // k-mer (the smaller of the window and its reverse complement, W = ceil(k/16)

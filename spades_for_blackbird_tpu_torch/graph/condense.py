@@ -1,6 +1,6 @@
 """Unitig condensation by pointer jumping over oriented (k+1)-mer edges.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/graph/condense.py``:
+PyTorch counterpart of the JAX package's ``graph/condense.py``:
 
 1. every unique (k+1)-mer yields two oriented edge instances (forward id
    ``2j``, reverse complement ``2j+1``);

@@ -1,7 +1,7 @@
 """Graph summary statistics.
 
 PyTorch counterpart of ``graph_stats`` in
-``spades_for_blackbird_tpu/graph/construct.py``.
+the JAX package's ``graph/construct.py``.
 """
 
 from __future__ import annotations

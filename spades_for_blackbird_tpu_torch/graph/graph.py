@@ -1,6 +1,6 @@
 """Condensed de Bruijn graph as flat tensors (edge table).
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/graph/graph.py``:
+PyTorch counterpart of the JAX package's ``graph/graph.py``:
 
 - every edge is a unitig with an explicit sequence (ragged rows in one
   flat code buffer);

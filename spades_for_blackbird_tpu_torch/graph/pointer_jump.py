@@ -1,6 +1,6 @@
 """Parallel chain contraction over a successor array (pointer jumping).
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/graph/pointer_jump.py``,
+PyTorch counterpart of the JAX package's ``graph/pointer_jump.py``,
 shared by unitig condensation (graph/condense.py), re-condensation
 (simplify/recondense.py) and early tip clipping. Every ``fori_loop`` of
 the JAX version is a Python loop with the same round count.

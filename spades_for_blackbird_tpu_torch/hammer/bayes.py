@@ -1,7 +1,7 @@
 """BayesHammer's statistical core: quality statistics, Bayesian
 subclustering and the solid-set expander.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/hammer/bayes.py``
+PyTorch counterpart of the JAX package's ``hammer/bayes.py``
 (projects/hammer kmer_stat.hpp KMerStat, kmer_cluster.cpp
 lMeansClustering/SubClusterSingle/ProcessCluster, expander.cpp):
 

@@ -1,6 +1,6 @@
 """Hamming-space k-mer clustering for read error correction.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/hammer/cluster.py``
+PyTorch counterpart of the JAX package's ``hammer/cluster.py``
 (projects/hammer/hamcluster.cpp ``KMerHamClusterer`` + the center election
 of kmer_cluster.cpp):
 

@@ -1,6 +1,6 @@
 """Read error correction by solid-k-mer voting (BayesHammer's corrector).
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/hammer/correct.py``
+PyTorch counterpart of the JAX package's ``hammer/correct.py``
 (projects/hammer read_corrector.cpp:19 + expander.cpp:17): every read
 position gathers votes from all k-mers covering it (a solid k-mer votes
 its own bases, an erroneous k-mer its cluster center's or subcluster

@@ -1,6 +1,6 @@
 """IonTorrent homopolymer-space read correction (IonHammer equivalent).
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/hammer/ionhammer.py``
+PyTorch counterpart of the JAX package's ``hammer/ionhammer.py``
 (projects/ionhammer: HKMer counting, gamma-Poisson run-length model):
 IonTorrent's dominant error is a miscalled homopolymer run length, so
 correction happens in homopolymer-compressed space:

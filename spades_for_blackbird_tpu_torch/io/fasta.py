@@ -1,6 +1,6 @@
 """Contig/FASTA output with SPAdes-compatible naming.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/io/fasta.py``
+PyTorch counterpart of the JAX package's ``io/fasta.py``
 (the reference's ``NODE_i_length_l_cov_c`` headers).
 """
 

@@ -1,6 +1,6 @@
 """FASTG assembly-graph writer.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/io/fastg.py`` (the
+PyTorch counterpart of the JAX package's ``io/fastg.py`` (the
 reference's FASTG writer, common/io/graph/fastg_writer.cpp): SPAdes-style
 headers ``>EDGE_i_length_L_cov_C[:successor[,successor...]];``
 with ``'`` marking reverse-complement orientation.

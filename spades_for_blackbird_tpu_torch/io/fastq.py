@@ -1,6 +1,6 @@
 """Host-side FASTA/FASTQ (optionally gzipped) -> padded code arrays.
 
-The port's own copy of ``spades_for_blackbird_tpu/io/fastq.py`` (the
+The port's own copy of the JAX package's ``io/fastq.py`` (the
 reference's kseq-based read streams and binary read store,
 assembler/src/common/io/reads/fasta_fastq_gz_parser.hpp,
 io/reads/binary_converter.hpp:25): reads are parsed once on the host into

@@ -1,6 +1,6 @@
 """GFA1 assembly-graph writer.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/io/gfa.py`` (the
+PyTorch counterpart of the JAX package's ``io/gfa.py`` (the
 reference's GFA writer, common/io/graph/gfa_writer.hpp:27): one S(egment)
 per conjugate edge pair (the lower id of the pair is the stored
 orientation = '+'), L(ink) records for every pair of edges meeting at a

@@ -1,6 +1,6 @@
 """Disk-backed binary read store (chunked re-streaming).
 
-The port's own copy of ``spades_for_blackbird_tpu/io/read_store.py``
+The port's own copy of the JAX package's ``io/read_store.py``
 (the reference's binary read store, io/reads/binary_converter.hpp:25
 ``BinaryWriter`` + io/dataset_support/read_converter.hpp:25
 ``ReadConverter``): convert FASTQ/FASTA(.gz) once into packed 2-bit

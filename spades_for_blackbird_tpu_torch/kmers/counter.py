@@ -1,6 +1,6 @@
 """Canonical k-mer counting: reads -> sorted unique (k-mer, count) table.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/kmers/counter.py``:
+PyTorch counterpart of the JAX package's ``kmers/counter.py``:
 extract and canonicalise (the CUDA kernel on the card,
 ``ops/kmer_cuda.py``), sort, run-length reduce.
 """

@@ -1,6 +1,6 @@
 """Coverage-model fit: separate erroneous from genomic k-mer coverage.
 
-Copied from ``spades_for_blackbird_tpu/kmers/coverage_model.py``: the fit
+Copied from the JAX package's ``kmers/coverage_model.py``: the fit
 is NumPy and unchanged; only ``count_spectrum_device`` runs on the
 device, here with PyTorch.
 

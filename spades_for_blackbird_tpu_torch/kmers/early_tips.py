@@ -1,6 +1,6 @@
 """Pre-graph early tip clipping on the (k+1)-mer table.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/kmers/early_tips.py``
+PyTorch counterpart of the JAX package's ``kmers/early_tips.py``
 (the reference's EarlyTipClipper construction phase). The whole
 (k+1)-mer multiset contracts into unique-in/unique-out chains by pointer
 jumping, then every chain is classified at once:

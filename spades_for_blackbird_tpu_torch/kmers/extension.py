@@ -1,6 +1,6 @@
 """Extension index: canonical k-mer vertex table with in/out nucleotide masks.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/kmers/extension.py``:
+PyTorch counterpart of the JAX package's ``kmers/extension.py``:
 from the unique (k+1)-mer table, derive the k-mer set and a 4-bit out
 mask and 4-bit in mask per canonical k-mer.
 

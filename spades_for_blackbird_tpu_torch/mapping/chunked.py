@@ -1,6 +1,6 @@
 """Read-to-graph mapping over chunks of reads.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/mapping/chunked.py``
+PyTorch counterpart of the JAX package's ``mapping/chunked.py``
 (the reference streams reads through its mappers in chunks,
 sequence_mapper_notifier.hpp:66): the (R, P) vote intermediates of one
 ``map_reads`` call stay bounded however large the library. A read's

@@ -1,6 +1,6 @@
 """Edge k-mer index: canonical k-mer -> (edge, offset, strand).
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/mapping/index.py``
+PyTorch counterpart of the JAX package's ``mapping/index.py``
 (the reference's edge-position index, assembly_graph/index/
 edge_position_index.hpp ``KmerStoringEdgeIndex``): every k-mer of every
 alive edge, sorted by its canonical form, with its edge id, the offset

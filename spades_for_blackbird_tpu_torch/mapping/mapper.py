@@ -1,6 +1,6 @@
 """Batch read-to-graph mapping.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/mapping/mapper.py``
+PyTorch counterpart of the JAX package's ``mapping/mapper.py``
 (the reference's ``BasicSequenceMapper``/``SequenceMapperNotifier``,
 modules/alignment/sequence_mapper.hpp:288,
 sequence_mapper_notifier.hpp:25-100): every read k-mer is looked up in

@@ -1,6 +1,6 @@
 """Fixed-shape row chunking.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/ops/chunking.py``.
+PyTorch counterpart of the JAX package's ``ops/chunking.py``.
 The JAX version slices with a traced offset so that one compile serves
 every chunk; eager PyTorch has no compiles, so a slice is a view.
 """

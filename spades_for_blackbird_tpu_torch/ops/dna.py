@@ -1,6 +1,6 @@
 """2-bit DNA primitives: encoding, complement, packed k-mer words.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/ops/dna.py``.
+PyTorch counterpart of the JAX package's ``ops/dna.py``.
 
 - *code arrays*: ``uint8`` tensors of 2-bit codes (A=0, C=1, G=2, T=3),
   with ``INVALID_CODE`` (4) marking N/padding. Shape ``(..., L)``.

@@ -1,6 +1,6 @@
 """Vectorized k-mer extraction from padded read tensors.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/ops/kmer.py``. This is
+PyTorch counterpart of the JAX package's ``ops/kmer.py``. This is
 the plain version of the CUDA extraction kernel (``ops/kmer_cuda.py``):
 the kernel's wrapper runs ``extract_sort_keys`` (and, for its strand
 entry, ``extract_canonical_keys``) for tensors on the CPU, and

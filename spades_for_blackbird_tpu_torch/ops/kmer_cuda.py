@@ -1,7 +1,7 @@
 """Wrapper of the hand-written CUDA k-mer extraction kernel.
 
 The kernel (``csrc/kmer_extract.cu``) replaces the TPU kernel
-``spades_for_blackbird_tpu/ops/kmer_pallas.py::_kernel``: canonical
+the JAX package's ``ops/kmer_pallas.py::_kernel``: canonical
 k-mers of every window of a read batch, written as the keys the counting
 sort sorts (``segments.fused_cols`` of the canonical words, invalid
 windows as the fused all-ones sentinel where k % 16 != 0). A second entry,

@@ -1,7 +1,7 @@
 """Sorted-multiset machinery: multi-word sort, run-length unique/count,
 compaction, vectorised binary search.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/ops/segments.py``.
+PyTorch counterpart of the JAX package's ``ops/segments.py``.
 Variable-size results are returned as padded tensors plus a 0-dim count
 tensor, as in the JAX package.
 

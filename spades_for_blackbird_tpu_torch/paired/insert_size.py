@@ -1,6 +1,6 @@
 """Insert-size estimation from read pairs mapped to a common edge.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/paired/insert_size.py``
+PyTorch counterpart of the JAX package's ``paired/insert_size.py``
 (the reference's ``InsertSizeCounter``, common/paired_info/
 is_counter.hpp, driven at projects/spades/pair_info_count.cpp:186-230):
 pairs whose mates map to the same edge give insert-size observations;

@@ -1,6 +1,6 @@
 """Paired-info index: (edge1, edge2) -> histogram of (distance, weight).
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/paired/pair_info.py``
+PyTorch counterpart of the JAX package's ``paired/pair_info.py``
 (the reference's ``PairedIndex``, common/paired_info/
 paired_info.hpp:24-660, and ``LatePairedIndexFiller``,
 pair_info_filler.hpp): the unclustered index is one sorted table of

@@ -1,6 +1,6 @@
 """Scaffold-join gap analysis.
 
-The port's copy of ``spades_for_blackbird_tpu/path_extend/gap_analyzer.py``:
+The port's copy of the JAX package's ``path_extend/gap_analyzer.py``:
 host NumPy, as there; it reads no graph.
 
 Counterpart of the reference's GapAnalyzer stack

@@ -1,6 +1,6 @@
 """Loop traverser: join path pairs across short tandem-repeat components.
 
-The port's copy of ``spades_for_blackbird_tpu/path_extend/loop_traverser.py``:
+The port's copy of the JAX package's ``path_extend/loop_traverser.py``:
 host NumPy, as there; a graph on the card is copied to the host once,
 at the top of each pass (``graph/host.host_view``).
 

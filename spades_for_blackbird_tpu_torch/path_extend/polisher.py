@@ -1,6 +1,6 @@
 """Path polisher: replace scaffold N-gaps with real graph paths.
 
-The port's copy of ``spades_for_blackbird_tpu/path_extend/polisher.py``:
+The port's copy of the JAX package's ``path_extend/polisher.py``:
 host NumPy, as there; a graph on the card is copied to the host once,
 at the top of each pass (``graph/host.host_view``).
 

@@ -1,6 +1,6 @@
 """Repeat resolution: paired-info-guided path extension (exSPAnder).
 
-The port's copy of ``spades_for_blackbird_tpu/path_extend/resolver.py``:
+The port's copy of the JAX package's ``path_extend/resolver.py``:
 host NumPy, as there; a graph on the card is copied to the host once,
 at the top of each pass (``graph/host.host_view``).
 

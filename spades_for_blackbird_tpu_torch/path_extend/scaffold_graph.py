@@ -1,6 +1,6 @@
 """Explicit scaffold graph (the reference's "scaffolder2015").
 
-The port's copy of ``spades_for_blackbird_tpu/path_extend/scaffold_graph.py``:
+The port's copy of the JAX package's ``path_extend/scaffold_graph.py``:
 host NumPy, as there; a graph on the card is copied to the host once,
 at the top of each pass (``graph/host.host_view``).
 

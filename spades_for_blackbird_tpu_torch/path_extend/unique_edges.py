@@ -1,6 +1,6 @@
 """Scaffolding unique-edge storage and multiplicity estimation.
 
-The port's copy of ``spades_for_blackbird_tpu/path_extend/unique_edges.py``:
+The port's copy of the JAX package's ``path_extend/unique_edges.py``:
 host NumPy, as there; a graph on the card is copied to the host once,
 at the top of each pass (``graph/host.host_view``).
 

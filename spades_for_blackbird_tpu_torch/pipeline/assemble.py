@@ -1,7 +1,7 @@
 """Single-K assembly, the K ladder and repeat resolution: reads ->
 simplified graph -> contigs and scaffolds.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/assemble.py``,
+PyTorch counterpart of the JAX package's ``pipeline/assemble.py``,
 single-device branch. ``assemble_single_k`` counts (k+1)-mers, fits the
 coverage model, builds the vertex table, clips early tips, condenses
 unitigs, compacts, simplifies and emits contigs (the reference's per-K
@@ -15,6 +15,7 @@ through it (the reference's RepeatResolution).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 from dataclasses import dataclass
@@ -30,10 +31,11 @@ from ..io import fasta
 from ..kmers import counter, coverage_model, early_tips, extension
 from ..mapping import chunked, mapper
 from ..mapping import index as eidx
+from ..models import bio
 from ..ops import dna
 from ..paired import insert_size, pair_info
 from ..path_extend import loop_traverser, polisher, resolver, scaffolder
-from ..simplify import runner
+from ..simplify import ec_threshold, runner
 from ..utils import timetrace
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
@@ -188,18 +190,19 @@ def assemble_single_k(codes, lengths, k: int,
         "--additional-contigs" mechanism): each of their (k+1)-mers
         counts once more. The coverage model is fitted on the reads'
         spectrum alone.
+      restricted_sequences: the blackbird fork's restricted sequences
+        (restricted_edges_filling.cpp:16-41): the edges their
+        (k+1)-mers map to are never glued away by a bulge pass. The mask
+        is mapped anew for every bulge pass (an edge index and one
+        mapping), because recondensation renumbers edges.
+      uneven_depth: take the error-connection bound from the graph
+        (``ec_threshold.uneven_ec_bound``, the reference's meta/MDA
+        GenomicInfoFiller branch) instead of the spectrum fit; not for a
+        graph resumed from the pre-simplify checkpoint, whose bound was
+        saved with it.
       phase_dir: directory of the pre-simplify checkpoint
         (``_save_phase_presimplify``).
-
-    ``restricted_sequences`` and ``uneven_depth=True`` are not ported yet
-    and raise NotImplementedError.
     """
-    for name, value in (("restricted_sequences", restricted_sequences),
-                        ("uneven_depth", uneven_depth)):
-        if value:
-            raise NotImplementedError(
-                f"assemble_single_k({name}=...) is not ported to PyTorch "
-                f"yet (ROADMAP.md, Queue 1, 'Still to port')")
     if k % 2 == 0:
         raise ValueError(f"k must be odd (reference enforces this, "
                          f"projects/spades/main.cpp:101), got {k}")
@@ -221,6 +224,12 @@ def assemble_single_k(codes, lengths, k: int,
         g, v_space, ginfo = _construct(codes, lengths, k, min_kmer_count,
                                        extra_sequences, early_tip_clip,
                                        device)
+        if uneven_depth:
+            # the spectrum mixture fit is unreliable under uneven depth
+            # (genomic_info_filler.cpp:31-45, ec_threshold_finder.hpp:25)
+            with _scope("uneven_ec_bound", device, k=k):
+                ginfo = dataclasses.replace(
+                    ginfo, ec_bound=ec_threshold.uneven_ec_bound(g))
         if phase_dir:
             with _scope("phase_checkpoint", device, k=k):
                 _save_phase_presimplify(phase_dir, k, g, v_space, ginfo)
@@ -228,8 +237,13 @@ def assemble_single_k(codes, lengths, k: int,
     _log.info(f"simplify entry shapes: E2={g.capacity} "
               f"flat={g.seq_flat.shape[0]} V={v_space} k={k} "
               f"ec_bound={float(ginfo.ec_bound):.3f}")
+    protected_fn = None
+    if restricted_sequences:
+        def protected_fn(gr):
+            return bio.fill_restricted_edges(gr, restricted_sequences)
     with _scope("simplify", device, k=k):
-        g = runner.simplify_graph(g, v_space, ginfo.ec_bound, cfg)
+        g = runner.simplify_graph(g, v_space, ginfo.ec_bound, cfg,
+                                  protected_fn=protected_fn)
     if phase_dir:
         clear_phase_presimplify(phase_dir, k)
 

@@ -1,6 +1,6 @@
 """Layered assembly configuration with mode overlays.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/config.py``,
+PyTorch counterpart of the JAX package's ``pipeline/config.py``,
 which replaces the reference's stacked ``.info`` property-tree config
 (common/pipeline/config_struct.{hpp,cpp} ``load_cfg_from_files`` over
 configs/debruijn/config.info + <mode>_mode.info + simplification.info;
@@ -12,7 +12,7 @@ metaplasmid, rna, single-cell (sc) and the rest of ``MODES``. The port's
 ``SimplifyConfig`` holds the tuning fields of the passes it runs; an
 overlay that sets a field of a pass not ported yet raises
 ``NotImplementedError`` naming the field (``_simplify``), so no mode drops
-a setting silently. ``isolate`` works fully.
+a setting silently. ``isolate`` and ``sc`` work fully.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Gap closing: join dead-end edge pairs supported by read pairs.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/gap_closer.py``
+PyTorch counterpart of the JAX package's ``pipeline/gap_closer.py``
 (the reference's GapClosing stage, projects/spades/gap_closer.cpp
 ``GapCloserPairedIndexFiller``:25 + ``GapCloser``:170): mate pairs whose
 ends map onto two different dead-end edges witness that the edges are

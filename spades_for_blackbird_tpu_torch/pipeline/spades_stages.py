@@ -1,16 +1,17 @@
 """Concrete stage list for the main assembly pipeline.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/spades_stages.py``
+PyTorch counterpart of the JAX package's ``pipeline/spades_stages.py``
 (``assemble_genome``'s stage assembly, projects/spades/pipeline.cpp:213-290):
 ReadConversion -> [ErrorCorrection] -> one iteration stage per K
 (Construction + GenomicInfoFiller + Simplification fused) ->
 [GapClosing] -> RepeatResolution -> ContigOutput.
 
 Ported so far: read conversion, error correction (BayesHammer, or
-IonHammer with --iontorrent), the iteration stages, gap closing, repeat
-resolution (paired libraries through exSPAnder path extension and
-scaffolding; without one the contigs pass through), and contig output.
-Every other stage of the JAX
+IonHammer with --iontorrent), the iteration stages or, with
+--assembly-graph, loading the graph from a GFA file, gap closing,
+mismatch correction (--careful), repeat resolution (paired libraries
+through exSPAnder path extension and scaffolding; without one the
+contigs pass through), and contig output. Every other stage of the JAX
 package's list still takes its place under its name, as a stage that
 raises ``NotImplementedError`` (``_unported``); ``cli.main`` reads their
 ``unported`` field before it runs anything.
@@ -24,12 +25,13 @@ import os
 import numpy as np
 import torch
 
+from ..graph.from_gfa import graph_from_gfa
 from ..hammer import correct as hammer_correct
 from ..hammer import ionhammer
 from ..io import fasta, fastg, fastq, gfa
 from ..ops import dna
 from ..utils.device import resolve_device
-from . import assemble, gap_closer
+from . import assemble, gap_closer, mismatch_correction
 from .config import AssemblyConfig
 from .stages import PipelineContext, Stage
 
@@ -260,6 +262,38 @@ def make_gap_closing(log, device=None):
     return Stage("gap_closing", run)
 
 
+def make_load_graph(gfa_path: str, log, device=None):
+    """LoadGraph (load_graph.cpp:16-36): the graph of a GFA file takes
+    the place of construction, on the run's device (``device``: the card
+    unless ``"cpu"`` is asked for)."""
+    def run(ctx: PipelineContext):
+        ctx.graph = graph_from_gfa(gfa_path, device=device)
+        ctx.contigs = fasta.graph_contigs(ctx.graph,
+                                          min_length=2 * ctx.graph.k)
+        log(f"loaded graph from {gfa_path}: "
+            f"{len(ctx.contigs)} segments, k={ctx.graph.k}")
+    return Stage("load_graph", run)
+
+
+def make_mismatch_correction(log, device=None):
+    """MismatchCorrection (--careful, mismatch_correction.cpp): every
+    read votes on the graph's bases and a strict majority rewrites them.
+    ``device`` as ``correct_mismatches`` takes it: by default the card
+    the context's reads are on, else the first card; the CPU only on
+    request."""
+    def run(ctx: PipelineContext):
+        if ctx.graph is None:
+            return
+        g, n = mismatch_correction.correct_mismatches(
+            ctx.graph, ctx.codes, ctx.lengths,
+            device=resolve_device(device, ctx.codes))
+        ctx.graph = g
+        if n:
+            ctx.contigs = fasta.graph_contigs(g, min_length=2 * g.k)
+        log(f"corrected {n} mismatching bases")
+    return Stage("mismatch_correction", run)
+
+
 def make_repeat_resolution(log, output_dir=None, device=None):
     """RepeatResolution (projects/spades/repeat_resolving.cpp): without
     a paired library the contigs pass through; with one,
@@ -388,7 +422,8 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
                 write_corrected=args.only_error_correction, device=device))
     if getattr(args, "assembly_graph", None):
         # LoadGraph replaces construction (load_graph.cpp:16-36)
-        stages.append(_unported("load_graph", "item 11"))
+        stages.append(make_load_graph(args.assembly_graph, log,
+                                      device=device))
     else:
         cc = getattr(args, "cov_cutoff", "off")
         min_kc = 1 if cc == "off" else ("auto" if cc == "auto" else int(cc))
@@ -410,7 +445,7 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
         stages.append(_unported("hybrid_aligning", "item 11"))
         stages.append(_unported("hybrid_aligning_2", "item 11"))
     if cfg.careful or getattr(args, "careful", False):
-        stages.append(_unported("mismatch_correction", "e"))
+        stages.append(make_mismatch_correction(log, device=device))
     if cfg.chromosome_removal:
         stages.append(_unported("chromosome_removal", "item 11"))
     if getattr(args, "series_analysis", None):

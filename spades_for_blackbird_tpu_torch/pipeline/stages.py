@@ -1,6 +1,6 @@
 """Stage framework with per-stage checkpointing.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/pipeline/stages.py``
+PyTorch counterpart of the JAX package's ``pipeline/stages.py``
 (the reference's in-process stage pipeline, common/pipeline/stage.hpp:24-194
 ``StageManager``/``AssemblyStage`` + ``SavesPolicy``, main loop at
 pipeline/stage.cpp:143-203, and its ``GraphPack`` container):

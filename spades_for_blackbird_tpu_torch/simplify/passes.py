@@ -1,7 +1,7 @@
 """Batch simplification passes: tips, parallel bulges, erroneous
-connections, isolated edges.
+connections, relatively low-covered edges, isolated edges.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/simplify/passes.py``.
+PyTorch counterpart of the JAX package's ``simplify/passes.py``.
 Every pass computes a deletion mask over the edge table against one
 graph snapshot; conjugate edges are always deleted together; chains
 re-contract afterwards via recondense().
@@ -100,7 +100,8 @@ def remove_isolated(g: Graph, v_space: int, max_length: int,
 
 
 def remove_bulges(g: Graph, v_space: int, max_length: int,
-                  max_relative_delta: float, max_coverage: float) -> Graph:
+                  max_relative_delta: float, max_coverage: float,
+                  protected: torch.Tensor | None = None) -> Graph:
     """Remove parallel simple bulges (AlternativesAnalyzer restricted to
     single-edge alternatives).
 
@@ -108,7 +109,9 @@ def remove_bulges(g: Graph, v_space: int, max_length: int,
     coverage, then the conjugate-invariant id min(e, conj(e)), and delete
     the rest when they are short (<= max_length), similar in length and
     below max_coverage. The removed coverage is projected onto the kept
-    edge.
+    edge. ``protected`` edges ((E,) bool: the blackbird fork's restricted
+    edge set, stages/simplification.cpp:200-212 bulge_callback) are never
+    glued away.
     """
     E = g.capacity
     m = edge_mask(g)
@@ -142,12 +145,44 @@ def remove_bulges(g: Graph, v_space: int, max_length: int,
         (len_p - g.k <= max_length) & (cov_p <= max_coverage) & \
         ((len_p - blen).abs().to(torch.float32) <= delta)
 
+    if protected is not None:
+        kill_p &= ~protected[perm]
+
     # scatter kill + coverage projection back to edge order
     kill = torch.zeros(E + 1, dtype=torch.bool, device=g.device)
     kill[torch.where(kill_p, perm, E)] = True
     add_cov = drop_scatter(E, torch.where(kill_p, best_edge[gid_c], E), cov_p)
     g = g._replace(cov=g.cov + add_cov)
     return _delete(g, kill[:E])
+
+
+def remove_relative_low_coverage(g: Graph, v_space: int,
+                                 coverage_gap: float,
+                                 max_length: int) -> Graph:
+    """Relative-coverage erroneous connection removal
+    (relative_coverage_remover.hpp, the edge-level pre-pass of the rcc
+    block): short edges (``seq_len <= max_length``, in bases as in the
+    JAX package) whose coverage is ``coverage_gap`` times below the
+    strongest flanking edges on BOTH sides are dropped. The strongest
+    alternative at the start junction is the best edge into start_v or
+    another edge out of it (the candidate does not compete with itself);
+    the end junction is symmetric."""
+    m = edge_mask(g)
+    vs = torch.where(m, g.start_v, v_space)
+    ve = torch.where(m, g.end_v, v_space)
+    cov0 = torch.where(m, g.cov, 0.0)
+    out_maxcov = drop_scatter(v_space, vs, cov0, "amax")
+    in_maxcov = drop_scatter(v_space, ve, cov0, "amax")
+    vss = torch.clamp(g.start_v, max=v_space - 1)
+    ves = torch.clamp(g.end_v, max=v_space - 1)
+    out_excl = _seg_max_excl_self(g.cov, g.start_v, m, v_space)
+    in_excl = _seg_max_excl_self(g.cov, g.end_v, m, v_space)
+    start_flank = torch.maximum(in_maxcov[vss], out_excl)
+    end_flank = torch.maximum(out_maxcov[ves], in_excl)
+    kill = m & (g.seq_len <= max_length) & \
+        (g.cov * coverage_gap < start_flank) & \
+        (g.cov * coverage_gap < end_flank)
+    return _delete(g, kill)
 
 
 def remove_erroneous_connections(g: Graph, v_space: int, max_length: int,

@@ -1,6 +1,6 @@
 """Re-condensation: merge chains of alive edges after deletions.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/simplify/recondense.py``:
+PyTorch counterpart of the JAX package's ``simplify/recondense.py``:
 after simplification passes mask edges dead, every non-branching chain
 of surviving edges re-contracts with the shared pointer-jumping routine
 (graph/pointer_jump.py). Merged sequences overlap by k bases; coverage

@@ -1,6 +1,6 @@
 """Simplification orchestration: iterative tips/bulges/EC to a fixed point.
 
-PyTorch counterpart of ``spades_for_blackbird_tpu/simplify/runner.py``
+PyTorch counterpart of the JAX package's ``simplify/runner.py``
 (the reference's GraphSimplifier: InitialCleaning -> cycle of {tip,
 bulge, EC} with iterative coverage thresholds -> PostSimplification),
 with parameter semantics from configs/debruijn/simplification.info:
@@ -12,10 +12,12 @@ with parameter semantics from configs/debruijn/simplification.info:
 - icb:     iterative coverage bound, ramped linearly over the cycle
 - bulge:   max_bulge_length = max(coeff * k, k + additive)
 
-Of the post-simplification passes the port runs those the isolate
-defaults enable: complex tips and path bulges. A configuration that
-enables another one raises ``NotImplementedError``; ROADMAP.md queues
-those passes.
+Of the post-simplification passes the port runs those the isolate and
+single-cell (MDA) modes enable: relative-coverage components (rcc),
+complex tips, path bulges, the MDA topology block (tec, trec, isec,
+multiplicity counting) and the hidden-EC remover (her). A configuration
+that enables another one raises ``NotImplementedError``; ROADMAP.md
+queues those passes.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 
 from ..graph.graph import Graph, edge_mask
 from ..utils.logger import get_logger
+from ..utils.timetrace import device_scope
 from ..utils.timetrace import scope as _scope
 from . import advanced, passes
 from .recondense import recondense
@@ -35,9 +38,9 @@ _log = get_logger("Simplification")
 class SimplifyConfig:
     """Simplification parameters (isolate-mode defaults of the reference,
     configs/debruijn/simplification.info), as in the JAX package. The
-    ``*_enabled`` switches of passes the port does not run yet stay, and
-    raise NotImplementedError when set; their tuning fields come with
-    the passes."""
+    switches of passes the port does not run yet stay, and raise
+    NotImplementedError when set; their tuning fields come with the
+    passes."""
     read_length: int = 100
     # tip clipper cycle clauses: (tc_lb, cb_absolute_or_None=auto, rctc)
     tip_clauses: tuple = ((1.5, 1.5, 2.0), (2.0, 1.5, None))
@@ -61,11 +64,43 @@ class SimplifyConfig:
     path_bulge_enabled: bool = True
     # final_br clause
     final_br_enabled: bool = True
+    # relative-coverage component removal (rcc block; meta/sc enable it;
+    # lengths are read_length multiples, relative_coverage_remover.hpp
+    # via graph_simplification.hpp:409-440)
+    rcc_enabled: bool = False
+    rcc_coverage_gap: float = 5.0
+    rcc_length_coeff: float = 2.0
+    rcc_tip_allowing_coeff: float = 3.0
+    rcc_vertex_limit: int = 30
+    rcc_max_ec_len_additive: int = 30     # max_ec_length_coefficient
+    rcc_max_coverage_coeff: float = 2.0   # <0 = unlimited
     # complex tip clipper (complex_tc block; enabled by default upstream)
     complex_tc_enabled: bool = True
     complex_tc_max_edge_len: int = 100
     complex_tc_lb: float = 3.5
     complex_tc_rel_coverage: float = -1.0
+    # topology-based EC remover (tec; MDA mode only —
+    # topology_simplif_enabled, mda_mode.info:6)
+    tec_enabled: bool = False
+    tec_max_ec_len_additive: int = 20   # max_ec_length_coefficient
+    tec_uniqueness_length: int = 1500
+    tec_plausibility_length: int = 200
+    # topology+reliability EC remover (trec block,
+    # simplification.info:212-217; runs with the MDA topology block)
+    trec_max_ec_len_additive: int = 100
+    trec_uniqueness_length: int = 1500
+    trec_unreliable_coverage: float = 2.5
+    # interstrand EC / thorn remover (isec block,
+    # simplification.info:220-225)
+    isec_max_ec_len_additive: int = 100
+    isec_uniqueness_length: int = 1500
+    isec_span_distance: int = 15000
+    # hidden-EC removers (her block; sc enables plain, meta the meta kind)
+    her_enabled: bool = False
+    her_meta: bool = False
+    her_uniqueness_length: int = 1500
+    her_unreliability_coeff: float = 4.0  # x detected ec bound
+    her_relative_threshold: float = 5.0
     # cycle (cycle_iter_count)
     rounds: int = 10
     # ier with use_rl_for_max_length_any_cov: isolated edges up to
@@ -74,25 +109,18 @@ class SimplifyConfig:
     isolated_max_coverage: float = 1e18
     # passes not ported yet: setting any of these raises
     low_complexity_enabled: bool = False
-    rcc_enabled: bool = False
     red_enabled: bool = False
     superbubble_enabled: bool = False
-    tec_enabled: bool = False
     mfec_enabled: bool = False
-    her_enabled: bool = False
-    her_meta: bool = False
 
 
-# SimplifyConfig switches whose passes are not ported yet
+# SimplifyConfig switches whose passes are not ported yet. her_meta runs
+# in remove_hidden_ec, but only meta sets it, and meta needs red first.
 _UNPORTED = (
     ("low_complexity_enabled", "rna low-complexity clippers"),
-    ("rcc_enabled", "relative-coverage component remover (rcc)"),
     ("red_enabled", "relative-coverage edge disconnector (red)"),
     ("superbubble_enabled", "superbubble collapse"),
-    ("tec_enabled", "topology EC removers (tec/trec/isec)"),
     ("mfec_enabled", "max-flow EC remover (mfec)"),
-    ("her_enabled", "hidden EC remover (her)"),
-    ("her_meta", "meta hidden EC remover (her)"),
 )
 
 
@@ -127,9 +155,15 @@ def _clip_tips_clauses(g: Graph, v_space: int, clauses, k: int,
 
 
 def simplify_graph(g: Graph, v_space: int, ec_bound: float,
-                   cfg: SimplifyConfig = SimplifyConfig()) -> Graph:
+                   cfg: SimplifyConfig = SimplifyConfig(),
+                   protected_fn=None) -> Graph:
     """Run the simplification cycle. ``ec_bound`` is the detected
-    coverage bound from the coverage model (GenomicInfo.ec_bound)."""
+    coverage bound from the coverage model (GenomicInfo.ec_bound).
+
+    ``protected_fn(g) -> (E,) bool tensor``: edges protected from bulge
+    gluing (the blackbird fork's restricted edges,
+    simplification.cpp:200-212); evaluated anew for every bulge pass,
+    because recondensation renumbers edges."""
     check_ported(cfg)
     k = g.k
     rl = cfg.read_length
@@ -155,13 +189,37 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
             g = recondense(g, v_space)
             g = passes.remove_bulges(g, v_space, bulge_len,
                                      cfg.bulge_rel_delta,
-                                     cfg.bulge_max_coverage)
+                                     cfg.bulge_max_coverage,
+                                     protected=_protected(protected_fn, g))
             g = recondense(g, v_space)
             g = passes.remove_erroneous_connections(g, v_space, ec_len,
                                                     ec_thr)
             g = recondense(g, v_space)
 
-    # post-simplification (PostSimplification order)
+    # post-simplification (PostSimplification order,
+    # stages/simplification.cpp:230-330)
+    if cfg.rcc_enabled:
+        # edge-level relative EC pre-pass, then the component remover
+        # (relative_coverage_remover.hpp:692)
+        with device_scope("rcc", g.device):
+            g = passes.remove_relative_low_coverage(
+                g, v_space, cfg.rcc_coverage_gap,
+                int(cfg.rcc_length_coeff * rl))
+            g = recondense(g, v_space)
+            max_cov = (cfg.rcc_max_coverage_coeff * auto_cb
+                       if cfg.rcc_max_coverage_coeff >= 0 else float("inf"))
+            g, v_space, n = advanced.remove_rcc_components(
+                g, v_space,
+                coverage_gap=cfg.rcc_coverage_gap,
+                length_bound=int(cfg.rcc_length_coeff * rl),
+                tip_allowing_length_bound=int(cfg.rcc_tip_allowing_coeff
+                                              * rl),
+                longest_connecting_path_bound=k + cfg.rcc_max_ec_len_additive,
+                max_coverage=max_cov,
+                vertex_count_limit=cfg.rcc_vertex_limit)
+            if n:
+                g = recondense(g, v_space)
+
     if cfg.complex_tc_enabled:
         with _scope("complex_tips"):
             g, v_space, n = advanced.clip_complex_tips(
@@ -172,13 +230,15 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
             g = recondense(g, v_space)
 
     if cfg.path_bulge_enabled:
+        prot = _protected(protected_fn, g)
         with _scope("path_bulges"):
             g, v_space, n = advanced.remove_path_bulges(
                 g, v_space, max_length=bulge_len,
                 max_coverage=cfg.bulge_max_coverage,
                 max_relative_coverage=cfg.bulge_max_rel_coverage,
                 max_relative_delta=cfg.bulge_rel_delta,
-                min_identity=cfg.bulge_min_identity)
+                min_identity=cfg.bulge_min_identity,
+                protected=None if prot is None else prot.cpu().numpy())
         if n:
             g = recondense(g, v_space)
 
@@ -187,8 +247,50 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
     g = recondense(g, v_space)
     if cfg.final_br_enabled:
         g = passes.remove_bulges(g, v_space, bulge_len, cfg.bulge_rel_delta,
-                                 cfg.bulge_max_coverage)
+                                 cfg.bulge_max_coverage,
+                                 protected=_protected(protected_fn, g))
         g = recondense(g, v_space)
+
+    if cfg.tec_enabled:
+        # MDA topology simplification block, in the reference's order:
+        # tec -> trec -> isec (thorns) -> multiplicity counting
+        # (simplification.cpp:83-87). Each pass recondenses what it cut
+        # and the block recondenses once more, as the JAX package does:
+        # a second recondense may move a float32 coverage by an ulp.
+        with device_scope("topology_block", g.device):
+            for remover, kw in (
+                    (advanced.remove_topology_ec, dict(
+                        max_ec_length=k + cfg.tec_max_ec_len_additive,
+                        uniqueness_length=cfg.tec_uniqueness_length,
+                        plausibility_length=cfg.tec_plausibility_length)),
+                    (advanced.remove_tr_ec, dict(
+                        max_ec_length=k + cfg.trec_max_ec_len_additive,
+                        uniqueness_length=cfg.trec_uniqueness_length,
+                        unreliable_coverage=cfg.trec_unreliable_coverage)),
+                    (advanced.remove_thorns, dict(
+                        max_ec_length=k + cfg.isec_max_ec_len_additive,
+                        uniqueness_length=cfg.isec_uniqueness_length,
+                        span_distance=cfg.isec_span_distance)),
+                    (advanced.remove_multiplicity_ec, dict(
+                        max_ec_length=k + cfg.tec_max_ec_len_additive,
+                        uniqueness_length=cfg.tec_uniqueness_length,
+                        plausibility_length=cfg.tec_plausibility_length))):
+                g, v_space, n = remover(g, v_space, **kw)
+                if n:
+                    g = recondense(g, v_space)
+
+    if cfg.her_enabled or cfg.her_meta:
+        with device_scope("hidden_ec", g.device):
+            g, v_space, n = advanced.remove_hidden_ec(
+                g, v_space,
+                uniqueness_length=cfg.her_uniqueness_length,
+                unreliability_threshold=cfg.her_unreliability_coeff
+                * auto_cb,
+                ec_threshold=auto_cb,
+                relative_threshold=cfg.her_relative_threshold,
+                meta=cfg.her_meta)
+            if n:
+                g = recondense(g, v_space)
 
     iso_len = cfg.isolated_max_length
     if iso_len is None:
@@ -197,6 +299,10 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
     if _log.enabled(1):  # DEBUG: SimplificationCleanup-style stats
         _log.debug(f"simplified: {alive_edge_count(g)} edges alive")
     return g
+
+
+def _protected(protected_fn, g: Graph):
+    return None if protected_fn is None else protected_fn(g)
 
 
 def alive_edge_count(g: Graph) -> int:

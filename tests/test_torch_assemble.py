@@ -20,6 +20,7 @@ from spades_for_blackbird_tpu_torch import interop  # noqa: E402
 from spades_for_blackbird_tpu_torch.io import fasta  # noqa: E402
 from spades_for_blackbird_tpu_torch.ops import dna  # noqa: E402
 from spades_for_blackbird_tpu_torch.pipeline import assemble  # noqa: E402
+from spades_for_blackbird_tpu_torch.simplify import runner  # noqa: E402
 from spades_for_blackbird_tpu_torch.utils import assess, simulate  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,8 +88,8 @@ def test_contigs_fasta_and_min_length(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    {"restricted_sequences": ["ACGT" * 20]},
-    {"uneven_depth": True},
+    {"cfg": runner.SimplifyConfig(red_enabled=True)},
+    {"cfg": runner.SimplifyConfig(superbubble_enabled=True)},
 ])
 def test_unported_options_raise(option):
     codes, lengths = dna.encode_reads(["ACGT" * 15])

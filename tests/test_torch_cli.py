@@ -243,14 +243,14 @@ def test_paired_input_runs_as_far_as_the_port_goes(tmp_path,
 
 
 @pytest.mark.parametrize("extra,needle", [
-    (["-1", "READS", "-2", "READS", "--careful"], "mismatch_correction"),
-    (["--only-assembler", "--careful"], "mismatch_correction"),
+    (["-1", "READS", "-2", "READS", "--meta"], "red_diff_mult"),
+    (["--only-assembler", "--metaplasmid"], "red_diff_mult"),
     (["--only-assembler", "--plasmid"], "chromosome_removal"),
     (["--only-assembler", "--rna"], "not ported"),
     (["--only-assembler", "--rnaviral"], "red_diff_mult"),
     (["--only-assembler", "--nanopore", "READS"], "hybrid_aligning"),
-    (["--only-assembler", "--assembly-graph", "READS"], "load_graph"),
-    (["--sc"], "her_relative_threshold"),
+    (["--only-assembler", "--pacbio", "READS"], "hybrid_aligning"),
+    (["--moleculo"], "mismatch-tip"),
 ])
 def test_unported_requests_exit_2_before_any_work(small, tmp_path, capsys,
                                                   extra, needle,
@@ -271,7 +271,8 @@ def test_mode_wrappers_and_mode_table(small, tmp_path, logger_untouched):
     assert cli.main(["-s", small, "-o", out, "--bio"] + CPU) == 2
     # isolate and the overlays that tune only ported passes build; the
     # others name the field they would have dropped
-    works = {"isolate", "plasmid", "rna", "bio", "large_genome"}
+    works = {"isolate", "plasmid", "rna", "bio", "large_genome", "sc",
+             "moleculo"}
     for mode in MODES:
         if mode in works:
             assert config_for_mode(mode).mode == mode

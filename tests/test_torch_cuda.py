@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written
 k-mer extraction kernel (both entries) against its plain PyTorch
 version, and the K ladder, the error corrector, the read mapper, the
-paired index, the gap closer and repeat resolution on the card against
-the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
+paired index, the gap closer, repeat resolution, mismatch correction,
+restricted edges, GFA input and single-cell simplification on the card
+against the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
 and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -13,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from spades_for_blackbird_tpu_torch.graph import from_gfa  # noqa: E402
 from spades_for_blackbird_tpu_torch.hammer import correct  # noqa: E402
 from spades_for_blackbird_tpu_torch.hammer import ionhammer  # noqa: E402
 from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
@@ -20,8 +22,9 @@ from spades_for_blackbird_tpu_torch.mapping import (  # noqa: E402
     chunked, index, mapper)
 from spades_for_blackbird_tpu_torch.ops import dna, kmer, kmer_cuda  # noqa: E402
 from spades_for_blackbird_tpu_torch.paired import pair_info  # noqa: E402
+from spades_for_blackbird_tpu_torch.io import gfa  # noqa: E402
 from spades_for_blackbird_tpu_torch.pipeline import (  # noqa: E402
-    assemble, gap_closer)
+    assemble, config, gap_closer, mismatch_correction)
 from spades_for_blackbird_tpu_torch.utils import simulate  # noqa: E402
 
 
@@ -315,3 +318,112 @@ def test_gap_closing_and_repeat_resolution_card_equals_cpu(card):
         out[dev.type] = (joined, contigs, scaffolds, paths, lib_data)
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][4][0]["pairs_used"] > 0
+
+
+def _planted(g, n_errors, seed):
+    """``g`` with ``n_errors`` bases changed mid-edge, mirrored on the
+    conjugate edges (two slots each)."""
+    rng = np.random.default_rng(seed)
+    flat = g.seq_flat.clone()
+    alive = np.nonzero(g.alive.numpy())[0]
+    ids = [int(e) for e in alive if int(g.seq_len[e]) > 600
+           and int(g.conj[e]) > e][:n_errors]
+    for e in ids:
+        s, ln = int(g.seq_start[e]), int(g.seq_len[e])
+        p = int(rng.integers(200, ln - 200))
+        flat[s + p] = (flat[s + p] + 1) % 4
+        cs = int(g.seq_start[int(g.conj[e])])
+        flat[cs + ln - 1 - p] = 3 - flat[s + p]
+    return g._replace(seq_flat=flat), 2 * len(ids)
+
+
+@pytest.mark.cuda
+def test_mismatch_correction_card_equals_cpu(card):
+    g, c1, l1, c2, l2 = _paired_graph(20_000, 15)
+    bad, planted = _planted(g, 3, 16)
+    codes = np.concatenate([c1, c2])
+    lengths = np.concatenate([l1, l2])
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        before = kmer_cuda.extract_sort_keys.launches
+        fixed, n = mismatch_correction.correct_mismatches(
+            bad, codes, lengths, chunk=5000, device=dev)
+        launched = kmer_cuda.extract_sort_keys.launches - before
+        assert launched >= 2 if dev.type == "cuda" else launched == 0
+        out[dev.type] = (fixed.seq_flat.cpu(), n)
+    assert out["cuda"][1] == out["cpu"][1] >= planted > 0
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cpu"][0], g.seq_flat)
+
+
+@pytest.mark.cuda
+def test_restricted_assembly_card_equals_cpu(card):
+    # tests/test_torch_restricted.py::_allele_reads: a 10 kb genome at
+    # 30x, 2 kb of it with four SNPs at 15x
+    genome = simulate.random_genome(10_000, seed=91)
+    variant = list(genome[4000:6000])
+    for p in (400, 800, 1200, 1600):
+        variant[p] = "ACGT"[("ACGT".index(variant[p]) + 1) % 4]
+    variant = "".join(variant)
+    r1, _, r2, _ = simulate.simulate_paired_reads(
+        genome, 1500, read_len=100, error_rate=0.001, seed=92)
+    v1, _, v2, _ = simulate.simulate_paired_reads(
+        variant, 150, read_len=100, error_rate=0.001, seed=93)
+    codes, lengths = dna.encode_reads(r1 + r2 + v1 + v2)
+    windows = [variant[p - 21:p + 22] for p in (400, 800, 1200, 1600)]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        res = assemble.assemble_single_k(codes, lengths, 21,
+                                         restricted_sequences=windows,
+                                         device=dev)
+        out[dev.type] = sorted((min(s, dna.revcomp_str(s)), c)
+                               for s, c in res.contigs)
+    assert [s for s, _ in out["cuda"]] == [s for s, _ in out["cpu"]]
+    np.testing.assert_allclose([c for _, c in out["cuda"]],
+                               [c for _, c in out["cpu"]], rtol=1e-4)
+    seqs = [s for s, _ in out["cuda"]]
+    assert all(any(w in s or dna.revcomp_str(w) in s for s in seqs)
+               for w in windows)
+
+
+@pytest.mark.cuda
+def test_gfa_input_card_equals_cpu(card, tmp_path):
+    g, c1, l1, c2, l2 = _paired_graph(20_000, 20)
+    path = str(tmp_path / "g.gfa")
+    gfa.write_gfa(path, g)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        loaded = from_gfa.graph_from_gfa(path, device=dev)
+        assert loaded.device.type == dev.type
+        g2, joined = gap_closer.close_gaps(loaded, c1, l1, c2, l2,
+                                           device=dev)
+        contigs, scaffolds = assemble.repeat_resolution_multi(
+            g2, [(c1, l1, c2, l2, "pe")], with_scaffolds=True, device=dev)
+        out[dev.type] = (joined, contigs, scaffolds)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_sc_assembly_card_equals_cpu(card):
+    genome = simulate.random_genome(20_000, seed=21, repeats=[(400, 2)])
+    rng = np.random.default_rng(22)
+    reads = []
+    for lo in range(0, 20_000, 5000):   # coverage constant over 5 kb blocks
+        block = genome[lo:lo + 5000]
+        cov = float(np.clip(40 * np.exp(0.8 * rng.standard_normal()), 8,
+                            200))
+        for _ in range(int(cov * len(block) / 100)):
+            p = int(rng.integers(0, len(block) - 100))
+            reads.append(block[p:p + 100])
+    codes, lengths = dna.encode_reads(reads)
+    cfg = config.config_for_mode("sc").simplify
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        res = assemble.assemble_single_k(codes, lengths, 33, cfg=cfg,
+                                         uneven_depth=True, device=dev)
+        out[dev.type] = (res.genomic_info.ec_bound, sorted(
+            (min(s, dna.revcomp_str(s)), c) for s, c in res.contigs))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    assert [s for s, _ in out["cuda"][1]] == [s for s, _ in out["cpu"][1]]
+    np.testing.assert_allclose([c for _, c in out["cuda"][1]],
+                               [c for _, c in out["cpu"][1]], rtol=1e-4)

@@ -246,8 +246,8 @@ def test_simplification_pass_matches_jax(state, name):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="rcc"):
-        runner.check_ported(runner.SimplifyConfig(rcc_enabled=True))
+    with pytest.raises(NotImplementedError, match="red"):
+        runner.check_ported(runner.SimplifyConfig(red_enabled=True))
     with pytest.raises(NotImplementedError, match="mismatch"):
         runner.check_ported(runner.SimplifyConfig(
             tip_clauses=((1.5, 1.5, 2.0, 3),)))
