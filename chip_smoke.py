@@ -4,7 +4,7 @@
 Usage (from the root of a checkout, on a machine with a CUDA card and
 the CUDA toolkit):
 
-    python3 chip_smoke.py [--out result.json] [--host-profile]
+    python3 chip_smoke.py [--out result.json]
 
 Phases, each of which raises on failure (the script then exits 1 and
 prints no result):
@@ -39,7 +39,9 @@ prints no result):
    (``_windows_from_sequences``) of that assembly at k+1 = 34 and 56,
    aligned and as a misaligned view; then the same reads as a FASTQ file
    through the command line twice, ``--device cuda`` and ``--device
-   cpu``, at -k 21,33,55: identical contig sequences, coverages within
+   cpu``, at -k 21,33 (21,33,55 until phases 12-14 came; every command
+   line of this phase runs that ladder): identical contig sequences,
+   coverages within
    rtol 1e-4, identical GFA segments and links; the error corrector on
    the same reads with their qualities (``correct_reads``) on the card
    and on the CPU: identical corrected codes and stats; the default
@@ -55,7 +57,15 @@ prints no result):
    wrote on the card; and ``assemble_single_k(restricted_sequences=...)``
    at k=21 on the reads plus a weak second allele (2 kb, 4 SNPs, half the
    coverage), restricted by the 43-base windows centred on its SNPs:
-   identical contigs, every window kept;
+   identical contigs, every window kept; then the modes on FR pairs of a
+   26 kb community (a 15 kb and an 8 kb genome at 40x, a 3 kb circle at
+   60x) through the command line on both: ``--meta -k 21,33``,
+   ``--plasmid``, ``--metaplasmid``, ``--metaviral``, ``--rnaviral``,
+   ``--rna --ss fr`` and ``--moleculo`` at ``-k 21``, all
+   ``--only-assembler``: identical contigs, scaffolds, ``.paths``,
+   ``final.lib_data``, GFA segments, links and P-lines, and identical
+   ``contigs.circular.fasta``, ``contigs.linears.fasta`` and
+   ``components_*.fasta`` (coverages in the headers within rtol 1e-4);
 4. the full-size run: ``assemble_single_k`` at k=55 on a simulated
    E. coli-sized genome (4.6 Mb, seed 7, 40x, 100 bp paired reads,
    error rate 0.002, planted repeats), graded against the truth with
@@ -65,14 +75,12 @@ prints no result):
    k+1 = 34 and 56: the row counts the ladder's later rungs hand it; and
    on the rows the edge index of this graph hands it (k+1 = 56, timed
    beside the bound);
-5. the profile: the same assembly again (phase 4 was its warm-up) under
-   ``torch.profiler`` (device time by kernel, and the card's busy share:
-   the union of device spans over the run's wall); with
-   ``--host-profile`` once more under ``cProfile`` (the host's hot
-   functions);
-6. the ladder through the command line on a 1 Mb simulation of the same
-   kind (4.6 Mb until the error corrector came; its five stage saves
-   alone took 3 minutes there): the reads written as one FASTQ file, then
+5. (the profile of phase 4's assembly under ``torch.profiler`` was cut
+   when phases 12-14 came, to keep the smoke inside its time);
+6. the ladder through the command line on a 500 kb simulation of the
+   same kind (4.6 Mb until the error corrector came, whose five stage
+   saves alone took 3 minutes there; 1 Mb until phases 12-14 came): the
+   reads written as one FASTQ file, then
    ``cli.main(["-s", fq, "-o", out, "--only-assembler", "--trace-time"])``,
    the default ladder 21, 33, 55, default checkpoints. It must return 0,
    meet the same quality bar on ``contigs.fasta``, write a GFA that reads
@@ -106,8 +114,9 @@ prints no result):
    is printed beside the JAX package's record of the same simulation
    (quality only), and the insert size, the wall, the stages, the
    mapping and repeat-resolution scopes, the peak device memory and the
-   launches. The command runs once more under ``torch.profiler`` (the
-   card's busy share). The mates and the GFA stay for phases 9 and 11;
+   launches (its rerun under ``torch.profiler`` was cut when phases 12-14
+   came, to keep the smoke inside its time). The mates and the GFA stay
+   for phases 9 and 11;
 9. careful mode at full size: (a) ``correct_mismatches`` on phase 4's
    k=55 graph with 1,000 planted base errors (edges over 1 kb, at least
    200 bases from their ends and 500 apart, mirrored on the conjugate
@@ -124,18 +133,55 @@ prints no result):
    reach genome fraction >= 0.95 on contigs (the wall, the stages, the
    scopes ``rcc``, ``topology_block`` and ``hidden_ec``, NG50 and the
    peak memory are printed); then ``assemble_single_k(...,
-   uneven_depth=True)`` at k=21 and k=55 on the same reads, the bound it
+   uneven_depth=True)`` at k=55 (k=21 too until phases 12-14 came) on
+   the same reads, the bound it
    takes and its scope's time beside the spectrum fit's bound;
 11. the fork's paths at full size: (a) phase 4's reads plus a 20 kb
-   variant copy (40 SNPs 500 bases apart, at 20x) through
+   variant copy (40 SNPs 500 bases apart, at 40x; its run at 20x was cut
+   when phases 12-14 came) through
    ``assemble_single_k`` at k=55 without and with the 40 windows of 111
    bases centred on its SNPs as ``restricted_sequences``: with them every
    window must lie in an alive edge (either strand), without them the
    count kept is printed, beside the launches inside ``simplify`` and the
    walls; (b) phase 8's reads with ``--only-assembler --assembly-graph``
    on phase 8's GFA: return 0 and the quality bar on contigs and
-   scaffolds. Phases 9-11 run with the plain extraction refused on the
-   card.
+   scaffolds;
+12. the metagenome at full size: four genomes of 2.0, 1.5, 1.0 and 0.5 Mb
+   (seeds 21-24, GC 0.40, 0.50, 0.60, 0.45, phase 4's planted repeats) at
+   80, 40, 20 and 8x, a 20 kb window of the first copied into the second
+   with 1% substitutions, a 12 kb and a 60 kb circular plasmid at 10 and 3
+   copies of the first genome and a 45 kb circular phage at 150x, as FR
+   pairs (100 bp, insert 300 +- 25, error rate 0.002, qualities): (a)
+   ``-1/-2 --meta``: return 0, each genome at >= 20x at genome fraction
+   >= 0.95 and no genome with a misassembly outside the island's windows
+   (each graded with ``utils/assess`` on the contigs whose 21-mers come
+   mostly from it), the kernel launched inside ``second_phase_setup``;
+   (b) ``--metaplasmid --only-assembler -k 55`` and (c) ``--metaviral
+   --only-assembler -k 55`` on the same reads (one rung: without the
+   correction each rung takes 2.5 times as long): return 0, each circle
+   held at
+   >= 90% of its 21-mers by one record of ``components_*.fasta`` or
+   ``contigs.circular.fasta``; (c) writes ``contigs.linears.fasta`` and
+   lists the phage as circular;
+13. ``-1/-2 --plasmid`` on phase 8's reads plus a 12 kb and a 60 kb
+   circular plasmid at 10 and 3 copies: return 0, each plasmid held at
+   >= 90% by one record of ``contigs.fasta`` or
+   ``contigs.circular.fasta``;
+14. RNA at full size: (a) ``-1/-2 --rna --ss fr -k 49`` (one rung of the
+   rna ladder: the coverage fit takes about 100 s a rung on this
+   spectrum) on stranded FR pairs (100 bp, insert 250 +- 25) of 1,500
+   simulated genes (2-6 exons, 1-3 isoforms skipping an exon, 10%
+   overlapping their neighbour antisense, log-normal expression, median
+   20x), at most 2M pairs: return 0, the kernel launched inside
+   ``ss_edge_split``, at least ``ISOFORM_BAR`` of the isoforms at >= 20x
+   held at >= 90% of their 21-mers by one contig (the share the JAX
+   package's own strand split leaves, PERF.md); (b)
+   ``-1/-2 --rnaviral`` on a 30 kb virus as three haplotypes (0, 1 and 3%
+   apart, 80/15/5 at 2,000x): return 0, the major haplotype at genome
+   fraction >= 0.95.
+
+Phases 9-14 run with the plain extraction refused on the card. Each
+phase's wall is printed as ``[timing]``.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 2 before printing any result. The last two lines of standard output are
@@ -147,11 +193,8 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
-import cProfile
-import io
 import json
 import os
-import pstats
 import shutil
 import subprocess
 import sys
@@ -186,7 +229,7 @@ RR_SCOPES = ("gc_build_index", "gc_map_reads", "rr_build_index",
              "rr_map_reads", "rr_pair_fill", "rr_resolve_paths",
              "rr_scaffold")
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
-LADDER_GENOME = 1_000_000  # phase 6: the checkpointed ladder's cut size
+LADDER_GENOME = 500_000  # phase 6: the checkpointed ladder's cut size
 HAMMER_SCOPES = ("hammer_count", "hammer_cluster", "hammer_subcluster",
                  "hammer_expand", "hammer_vote")
 FULL_COVERAGE = 40.0
@@ -208,7 +251,6 @@ VARIANT_AT = 1_000_000  # phase 11: where in the genome the copy starts
 # mask does not cover, in either package) takes some allele edges
 VARIANT_COVERAGE = FULL_COVERAGE
 PROFILE_TOP_KERNELS = 25
-PROFILE_TOP_HOST = 40
 
 
 def log(msg: str) -> None:
@@ -589,9 +631,10 @@ def phase_gpu_vs_cpu(device) -> dict:
     hammer = hammer_gpu_vs_cpu(device, codes, lengths, quals)
     restricted = restricted_gpu_vs_cpu(device, genome, codes, lengths)
     ladder = cli_gpu_vs_cpu(codes, lengths, quals)
+    modes = modes_gpu_vs_cpu(device)
     return {"contigs": len(a), "gpu_s": t_gpu, "cpu_s": t_cpu,
             "contig_windows": windows, "hammer": hammer,
-            "restricted": restricted, "cli": ladder}
+            "restricted": restricted, "cli": ladder, "modes": modes}
 
 
 def plant_snps(genome: str, lo: int, n: int, spacing: int):
@@ -707,15 +750,15 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
         # the GFA-input run reads the graph the paired run wrote on the card
         own_gfa = os.path.join(tmp, "paired", "cuda",
                                "assembly_graph_with_scaffolds.gfa")
-        runs = (("ladder", ["-s", plain, "-k", "21,33,55",
+        runs = (("ladder", ["-s", plain, "-k", "21,33",
                             "--only-assembler"]),
-                ("default", ["-s", with_quals, "-k", "21,33,55"]),
+                ("default", ["-s", with_quals, "-k", "21,33"]),
                 ("ion", ["-s", with_quals, "--iontorrent",
                          "--only-error-correction"]),
-                ("paired", pair + ["-k", "21,33,55"]),
-                ("careful", pair + ["-k", "21,33,55", "--only-assembler",
+                ("paired", pair + ["-k", "21,33"]),
+                ("careful", pair + ["-k", "21,33", "--only-assembler",
                                     "--careful"]),
-                ("sc", pair + ["-k", "21,33,55", "--only-assembler",
+                ("sc", pair + ["-k", "21,33", "--only-assembler",
                                "--sc"]),
                 ("gfa_input", pair + ["--only-assembler",
                                       "--assembly-graph", own_gfa]))
@@ -934,52 +977,6 @@ def device_table(prof) -> tuple[list[list], float, float]:
         row[2] += 1
     rows = sorted(by_name.values(), key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows), busy_union_us(spans) / 1e6
-
-
-def phase_profile(device, codes, lengths, host_profile: bool) -> dict:
-    """Where the full-size assembly spends its time on the card and, with
-    ``host_profile``, on the host."""
-    import torch
-    from spades_for_blackbird_tpu_torch.pipeline import assemble
-
-    def run() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        assemble.assemble_single_k(codes, lengths, FULL_K, device=device)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        prof_wall = run()
-    rows, device_sum, busy = device_table(prof)
-    log(f"[profile] wall under torch.profiler: {prof_wall:.3f} s")
-    if rows:
-        log(f"[profile] device busy union {busy:.3f} s = "
-            f"{busy / prof_wall:.1%} of the profiled wall; device time "
-            f"summed {device_sum:.3f} s")
-    else:  # the profiler could not trace the card; time is not measured
-        log("[profile] torch.profiler saw no device span: device time "
-            "not measured")
-    for name, sec, n in rows[:PROFILE_TOP_KERNELS]:
-        log(f"[profile] {sec:8.4f} s {n:7d}x  {name[:150]}")
-    record = {"profiled_wall_s": prof_wall, "device_busy_union_s": busy,
-              "device_busy_share": busy / prof_wall if rows else None,
-              "device_summed_s": device_sum, "device_kernels": rows}
-    if host_profile:
-        host = cProfile.Profile()
-        host.enable()
-        record["cprofile_wall_s"] = run()
-        host.disable()
-        text = io.StringIO()
-        pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(
-            PROFILE_TOP_HOST)
-        log(f"[profile] wall under cProfile: "
-            f"{record['cprofile_wall_s']:.3f} s")
-        log(text.getvalue())
-        record["cprofile"] = text.getvalue()
-    return record
 
 
 def scope_seconds(events) -> dict[str, float]:
@@ -1402,38 +1399,12 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
             out, "assembly_graph_with_scaffolds.gfa"))[2]:
         raise AssertionError("the GFA holds no scaffold P-line")
 
-    # once more under torch.profiler: the card's busy share of the run
-    shutil.rmtree(out)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli.main(argv + ["-o", out])
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"cli.main under the profiler returned {rc}")
-    rows, device_sum, busy = device_table(prof)
-    del prof
-    log(f"[paired] under torch.profiler: {prof_wall:.3f} s, device busy "
-        f"union {busy:.3f} s"
-        + (f" = {busy / prof_wall:.1%}" if rows else
-           " (no device span seen: not measured)"))
-    for name, sec, n in rows[:15]:
-        log(f"[paired] profile {sec:8.4f} s {n:7d}x  {name[:120]}")
     return {"reads": int(codes.shape[0]), "wall_s": wall,
             "mates": mates, "out": out,
             "fastq_write_s": write_s, "launches": launches,
             "launches_inside": dict(inside), "peak_bytes": int(peak),
             "stages_s": stages, "spans_s": spans, "lib_data": lib_data,
-            "assess": reports,
-            "profile": {"profiled_wall_s": prof_wall,
-                        "device_busy_union_s": busy,
-                        "device_busy_share": busy / prof_wall if rows
-                        else None,
-                        "device_summed_s": device_sum,
-                        "device_kernels": rows[:PROFILE_TOP_KERNELS]}}
+            "assess": reports}
 
 
 def stage_seconds(out: str, names) -> dict[str, float]:
@@ -1615,15 +1586,7 @@ def simulate_uneven(genome: str, seed: int):
     flip = rng.random(n_pairs) < 0.5   # fragments on the reverse strand
     r1, r2 = (np.where(flip[:, None], 3 - r2[:, ::-1], r1),
               np.where(flip[:, None], 3 - r1[:, ::-1], r2))
-    mates = []
-    for reads in (r1, r2):
-        err = rng.random(reads.shape) < 0.002
-        reads = np.where(err, (reads + rng.integers(1, 4, reads.shape)) % 4,
-                         reads).astype(np.uint8)
-        qual = np.where(rng.random(reads.shape) < 0.01, 12, 38)
-        qual = np.where(err & (rng.random(reads.shape) < 0.7), 8, qual)
-        mates.append((reads, (qual + 33).astype(np.uint8)))
-    return cov, mates[0], mates[1]
+    return cov, with_errors(rng, r1), with_errors(rng, r2)
 
 
 def phase_sc(device, genome, tmp) -> dict:
@@ -1677,7 +1640,7 @@ def phase_sc(device, genome, tmp) -> dict:
     lengths = np.full(codes.shape[0], FULL_READ_LEN, np.int32)
     uneven = {}
     with plain_extraction_refused():
-        for k in (21, FULL_K):
+        for k in (FULL_K,):
             timetrace.enable()
             kernel.launches = 0
             t0 = time.perf_counter()
@@ -1699,7 +1662,7 @@ def phase_sc(device, genome, tmp) -> dict:
         # the spectrum fit's bound on the same reads, for comparison
         c = torch.from_numpy(codes).to(device)
         ln = torch.from_numpy(lengths).to(device)
-        for k in (21, FULL_K):
+        for k in (FULL_K,):
             kp1 = counter.trim_table(counter.count_kmers_chunked(c, ln,
                                                                  k + 1))
             uneven[k]["fit_ec_bound"] = \
@@ -1724,8 +1687,8 @@ def phase_sc(device, genome, tmp) -> dict:
 
 def phase_fork(device, genome, codes, lengths, mates, gfa_path, tmp) -> dict:
     """The fork's paths at full size: (a) ``assemble_single_k`` at k=55
-    on phase 4's reads plus a weak second allele of 20 kb (40 SNPs 500
-    bases apart, at half the coverage), without and with the 2k+1 = 111
+    on phase 4's reads plus a second allele of 20 kb (40 SNPs 500 bases
+    apart, at the main copy's coverage), without and with the 2k+1 = 111
     base windows centred on its SNPs as restricted sequences; (b) the
     paired reads of phase 8 with ``--only-assembler --assembly-graph`` on
     phase 8's GFA."""
@@ -1743,8 +1706,7 @@ def phase_fork(device, genome, codes, lengths, mates, gfa_path, tmp) -> dict:
             kernel, [(runner, "simplify_graph")]) as inside:
         for name, cov, restricted in (
                 ("free", VARIANT_COVERAGE, None),
-                ("restricted", VARIANT_COVERAGE, windows),
-                ("restricted_half", FULL_COVERAGE / 2, windows)):
+                ("restricted", VARIANT_COVERAGE, windows)):
             vc, vl = allele_reads(variant, cov, seed=10)
             all_codes = np.concatenate([codes, vc])
             all_lengths = np.concatenate([lengths, vl])
@@ -1772,9 +1734,6 @@ def phase_fork(device, genome, codes, lengths, mates, gfa_path, tmp) -> dict:
                 f"({runs[name]['launches_in_simplify']} inside simplify), "
                 f"ec_bound {runs[name]['ec_bound']:.3f}, allele windows "
                 f"kept {runs[name]['kept']} of {len(windows)}")
-    # the mask covers the bulge passes only, as in the reference: at half
-    # the main copy's coverage the erroneous-connection remover may take
-    # an allele edge; that run is printed, the check is on the other
     if runs["restricted"]["kept"] != len(windows):
         raise AssertionError(f"{len(windows) - runs['restricted']['kept']} "
                              f"restricted windows lost")
@@ -1809,12 +1768,714 @@ def phase_fork(device, genome, codes, lengths, mates, gfa_path, tmp) -> dict:
             "gfa_stages_s": stages, "gfa_assess": reports}
 
 
+# ---------------------------------------------------------------------
+# The metagenomic, plasmid and RNA modes (phases 3, 12-14)
+# ---------------------------------------------------------------------
+
+def sample_pairs(rng, g, n_pairs: int, circular: bool = False,
+                 stranded: bool = False, insert_mean: float = 300.0,
+                 insert_sd: float = 25.0):
+    """FR pairs of FULL_READ_LEN bases from the codes ``g`` (uint8, 0..3):
+    fragments of N(insert_mean, insert_sd) bases, on either strand unless
+    ``stranded`` (then the first mate reads ``g``'s strand); on a circle
+    the fragments start anywhere and wrap. Error-free (r1, r2) uint8."""
+    rl = FULL_READ_LEN
+    L = len(g)
+    ins = np.clip(rng.normal(insert_mean, insert_sd, n_pairs).astype(
+        np.int64), rl, None)
+    if circular:
+        start = rng.integers(0, L, n_pairs)
+        src = np.concatenate([g, g[:int(ins.max(initial=rl))]])
+    else:
+        ins = np.minimum(ins, L)
+        start = (rng.random(n_pairs) * (L - ins + 1)).astype(np.int64)
+        src = g
+    offs = np.arange(rl)
+    r1 = src[start[:, None] + offs]
+    r2 = 3 - src[(start + ins - rl)[:, None] + offs][:, ::-1]
+    if not stranded:
+        flip = rng.random(n_pairs) < 0.5   # fragments on the other strand
+        r1, r2 = (np.where(flip[:, None], 3 - r2[:, ::-1], r1),
+                  np.where(flip[:, None], 3 - r1[:, ::-1], r2))
+    return r1.astype(np.uint8), r2.astype(np.uint8)
+
+
+def with_errors(rng, reads):
+    """``reads`` with substitutions at rate 0.002 and phred+33 qualities
+    (12 for 1% of the bases, 8 for 70% of the wrong ones, else 38):
+    (codes, quals)."""
+    err = rng.random(reads.shape) < 0.002
+    reads = np.where(err, (reads + rng.integers(1, 4, reads.shape)) % 4,
+                     reads).astype(np.uint8)
+    qual = np.where(rng.random(reads.shape) < 0.01, 12, 38)
+    qual = np.where(err & (rng.random(reads.shape) < 0.7), 8, qual)
+    return reads, (qual + 33).astype(np.uint8)
+
+
+def write_mates(tmp, name, parts, rng):
+    """Concatenate the (r1, r2) ``parts``, shuffle the pairs, add errors
+    and write two FASTQ files: their paths and the pair count."""
+    r1 = np.concatenate([p[0] for p in parts])
+    r2 = np.concatenate([p[1] for p in parts])
+    order = rng.permutation(len(r1))
+    paths = [os.path.join(tmp, f"{name}_{m}.fastq") for m in (1, 2)]
+    for path, reads in zip(paths, (r1[order], r2[order])):
+        codes, quals = with_errors(rng, reads)
+        write_fastq(path, codes, quals)
+    return paths, len(r1)
+
+
+def packed_kmers(codes, k: int = 21) -> np.ndarray:
+    """Canonical k-mers of a code vector (0..3) packed to int64."""
+    codes = np.asarray(codes, np.int64)
+    n = len(codes) - k + 1
+    if n <= 0:
+        return np.zeros(0, np.int64)
+    fwd = np.zeros(n, np.int64)
+    rev = np.zeros(n, np.int64)
+    for j in range(k):
+        fwd = (fwd << 2) | codes[j:j + n]
+        rev = rev | ((3 - codes[j:j + n]) << (2 * j))
+    return np.minimum(fwd, rev)
+
+
+def kmer_set(codes, k: int = 21) -> np.ndarray:
+    return np.unique(packed_kmers(codes, k))
+
+
+def hits_in(kmers: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Which of ``kmers`` lie in the sorted ``table``."""
+    if not len(table):
+        return np.zeros(len(kmers), bool)
+    at = np.minimum(np.searchsorted(table, kmers), len(table) - 1)
+    return table[at] == kmers
+
+
+def assign_sources(seqs, tables: dict, stride: int = 8) -> list:
+    """The source (a key of ``tables``: sorted k-mer sets) most of each
+    sequence's sampled 21-mers come from, or None."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    out = []
+    for s in seqs:
+        km = packed_kmers(dna.encode_str(s))[::stride]
+        if not len(km):
+            out.append(None)
+            continue
+        counts = {name: int(hits_in(km, t).sum())
+                  for name, t in tables.items()}
+        best = max(counts, key=counts.get)
+        out.append(best if 2 * counts[best] >= len(km) else None)
+    return out
+
+
+def best_share(circle: str, seqs) -> float:
+    """The largest share of ``circle``'s 21-mers (wrap included) that one
+    of ``seqs`` holds."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    want = kmer_set(dna.encode_str(circle + circle[:20]))
+    best = 0.0
+    for s in seqs:
+        if len(s) < 0.9 * len(circle):
+            continue
+        got = kmer_set(dna.encode_str(s))
+        best = max(best, float(hits_in(want, got).sum()) / len(want))
+    return best
+
+
+def fasta_records(path: str) -> list[tuple[str, str]]:
+    from spades_for_blackbird_tpu_torch.io import fastq
+    names, seqs = fastq.read_sequences(path)
+    return list(zip(names, seqs))
+
+
+def same_records(a, b, what: str) -> None:
+    """Two FASTA files' records: the same names but for the coverage
+    field (rtol COV_RTOL) and the same sequences."""
+    import re
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} records vs {len(b)}")
+    for (na, sa), (nb, sb) in zip(a, b):
+        ha, ta = na.split("_cov_", 1) if "_cov_" in na else (na, "")
+        hb, tb = nb.split("_cov_", 1) if "_cov_" in nb else (nb, "")
+        ca = re.match(r"[0-9.]+", ta)
+        cb = re.match(r"[0-9.]+", tb)
+        if sa != sb or ha != hb or (ca is None) != (cb is None) or (
+                ca and ta[ca.end():] != tb[cb.end():]):
+            raise AssertionError(f"{what}: {na} differs from {nb}")
+        if ca and not np.isclose(float(ca.group()), float(cb.group()),
+                                 rtol=COV_RTOL, atol=1e-6):
+            raise AssertionError(f"{what}: coverage of {na} vs {nb}")
+
+
+@contextlib.contextmanager
+def launches_by_stage(kernel):
+    """While open, every stage list the command line builds counts the
+    kernel's launches inside each stage: yields {stage name: launches}."""
+    import dataclasses as dc
+    from spades_for_blackbird_tpu_torch.pipeline import spades_stages
+    counts: dict[str, int] = {}
+    build = spades_stages.build_stage_list
+
+    def counted(stage):
+        def fn(ctx):
+            before = kernel.launches
+            try:
+                return stage.fn(ctx)
+            finally:
+                counts[stage.name] = (counts.get(stage.name, 0)
+                                      + kernel.launches - before)
+        return dc.replace(stage, fn=fn)
+
+    def wrapped(*args, **kwargs):
+        return [counted(s) for s in build(*args, **kwargs)]
+    spades_stages.build_stage_list = wrapped
+    try:
+        yield counts
+    finally:
+        spades_stages.build_stage_list = build
+
+
+def mode_run(device, argv, kernel):
+    """``run_cli`` with the launches counted by stage too: (wall s,
+    launches, launches by stage, peak device bytes)."""
+    with launches_by_stage(kernel) as by_stage:
+        wall, launches, _, peak = run_cli(device, argv, kernel)
+    return wall, launches, dict(by_stage), peak
+
+
+def log_lines(out: str, needles) -> list[str]:
+    with open(os.path.join(out, "spades.log")) as f:
+        return [ln.strip() for ln in f if any(n in ln for n in needles)]
+
+
+def community_20kb(tmp, rng):
+    """Phase 3's data for the modes: FR pairs of a 15 kb and an 8 kb
+    genome at 40x and a 3 kb circular plasmid at 60x."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    parts = []
+    for size, seed, cov, circ in ((15_000, 3, 40, False),
+                                  (8_000, 4, 40, False),
+                                  (3_000, 5, 60, True)):
+        g = dna.encode_str(simulate.random_genome(size, seed=seed))
+        parts.append(sample_pairs(rng, g, size * cov // 200,
+                                  circular=circ))
+    return write_mates(tmp, "community", parts, rng)[0]
+
+
+MODE_RUNS = (("meta", ["--meta", "-k", "21,33"]),
+             ("plasmid", ["--plasmid", "-k", "21"]),
+             ("metaplasmid", ["--metaplasmid", "-k", "21"]),
+             ("metaviral", ["--metaviral", "-k", "21"]),
+             ("rnaviral", ["--rnaviral", "-k", "21"]),
+             ("rna", ["--rna", "--ss", "fr", "-k", "21"]),
+             ("moleculo", ["--moleculo", "-k", "21"]))
+
+
+def modes_gpu_vs_cpu(device) -> dict:
+    """Phase 3 for the modes: each through the command line on the card
+    and on the CPU, on FR pairs of a 26 kb community with a circle:
+    identical contigs, scaffolds, GFA segments, links and P-lines,
+    ``.paths``, ``final.lib_data``, circular and linear candidates and
+    components."""
+    from spades_for_blackbird_tpu_torch import cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_modes_")
+    record = {}
+    try:
+        mates = community_20kb(tmp, np.random.default_rng(6))
+        for name, flags in MODE_RUNS:
+            argv = ["-1", mates[0], "-2", mates[1], "--only-assembler",
+                    "--checkpoints", "none"] + flags
+            walls = {}
+            for dev in (str(device), "cpu"):
+                t0 = time.perf_counter()
+                rc = cli.main(argv + ["-o", os.path.join(tmp, name, dev),
+                                      "--device", dev])
+                walls[dev] = time.perf_counter() - t0
+                if rc != 0:
+                    raise AssertionError(f"cli.main {name} --device {dev} "
+                                         f"returned {rc}")
+            card, cpu = (os.path.join(tmp, name, d)
+                         for d in (str(device), "cpu"))
+            files = sorted(n for n in os.listdir(cpu) if n.endswith(
+                (".fasta", ".paths", ".lib_data")))
+            if files != sorted(n for n in os.listdir(card) if n.endswith(
+                    (".fasta", ".paths", ".lib_data"))):
+                raise AssertionError(f"{name}: the card and the CPU wrote "
+                                     f"other files")
+            for fname in files:
+                if fname.endswith(".fasta"):
+                    same_records(fasta_records(os.path.join(card, fname)),
+                                 fasta_records(os.path.join(cpu, fname)),
+                                 f"{name} {fname}")
+                else:
+                    texts = [open(os.path.join(d, fname)).read()
+                             for d in (card, cpu)]
+                    if texts[0] != texts[1]:
+                        raise AssertionError(f"{name} {fname} differs")
+            (sa, la, pa), (sb, lb, pb) = (gfa_records(os.path.join(
+                d, "assembly_graph_with_scaffolds.gfa")) for d in (card, cpu))
+            if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb \
+                    or pa != pb or not np.allclose(
+                        [x[2] for x in sa], [x[2] for x in sb],
+                        rtol=COV_RTOL, atol=1e-6):
+                raise AssertionError(f"{name}: GFA segments, links or paths "
+                                     f"differ between card and CPU")
+            contigs = fasta_records(os.path.join(card, "contigs.fasta"))
+            record[name] = {"files": files, "contigs": len(contigs),
+                            "segments": len(sa), "paths": len(pa),
+                            "gpu_s": walls[str(device)],
+                            "cpu_s": walls["cpu"]}
+            log(f"[gpu-vs-cpu] 26 kb community {' '.join(flags)}: "
+                f"{len(contigs)} contigs, {len(sa)} segments, {len(pa)} "
+                f"P-lines, identical {', '.join(files)}; card "
+                f"{walls[str(device)]:.2f} s, cpu {walls['cpu']:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
+# phase 12: (name, size, seed, GC, coverage) of the community's genomes
+META_GENOMES = (("g1", 2_000_000, 21, 0.40, 80.0),
+                ("g2", 1_500_000, 22, 0.50, 40.0),
+                ("g3", 1_000_000, 23, 0.60, 20.0),
+                ("g4", 500_000, 24, 0.45, 8.0))
+ISLAND = 20_000        # strain window of g1 copied into g2
+ISLAND_AT = (700_000, 400_000)   # its start in g1 and in g2
+# (name, size, seed, coverage) of the circles: a 12 kb plasmid at 10
+# copies of g1, a 60 kb one at 3 copies, a phage at 150x
+META_CIRCLES = (("plasmid_12k", 12_000, 31, 800.0),
+                ("plasmid_60k", 60_000, 32, 240.0),
+                ("phage_45k", 45_000, 33, 150.0))
+META_FRACTION = 0.95   # genome fraction bar of genomes at >= 20x
+CIRCLE_SHARE = 0.90    # share of a circle one record must hold
+
+
+def metagenome(scale: float = 1.0):
+    """Phase 12's community: {name: genome}, {name: circle}, and the
+    island's windows in g1 and g2 ((start, end) pairs). ``scale`` cuts
+    the genomes (not the circles) for a rehearsal on the CPU."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    genomes = {name: simulate.random_genome(
+        int(size * scale), seed=seed, gc=gc,
+        repeats=[(2000, 3), (700, 4), (400, 6)])
+        for name, size, seed, gc, _ in META_GENOMES}
+    rng = np.random.default_rng(25)
+    a, b = (int(p * scale) for p in ISLAND_AT)
+    n = int(ISLAND * scale)
+    island = dna.encode_str(genomes["g1"][a:a + n])
+    hit = rng.random(n) < 0.01
+    island[hit] = (island[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    g2 = genomes["g2"]
+    genomes["g2"] = g2[:b] + dna.decode_codes(island) + g2[b + n:]
+    circles = {name: simulate.random_genome(size, seed=seed)
+               for name, size, seed, _ in META_CIRCLES}
+    return genomes, circles, {"g1": (a, a + n), "g2": (b, b + n)}
+
+
+def metagenome_reads(tmp, genomes, circles, rng):
+    from spades_for_blackbird_tpu_torch.ops import dna
+    cov = {name: c for name, _, _, _, c in META_GENOMES}
+    cov.update({name: c for name, _, _, c in META_CIRCLES})
+    parts = []
+    for name, seq in list(genomes.items()) + list(circles.items()):
+        parts.append(sample_pairs(
+            rng, dna.encode_str(seq), int(len(seq) * cov[name] / 200),
+            circular=name in circles))
+    return write_mates(tmp, "meta", parts, rng)
+
+
+def grade_metagenome(out, genomes, circles, windows) -> dict:
+    """Each genome graded with ``utils/assess`` on the contigs whose
+    21-mers come mostly from it; misassemblies of contigs that touch the
+    island's windows are counted apart."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.utils import assess
+    tables = {name: kmer_set(dna.encode_str(s))
+              for name, s in list(genomes.items()) + list(circles.items())}
+    island = np.union1d(*(kmer_set(dna.encode_str(genomes[g][lo:hi]))
+                          for g, (lo, hi) in windows.items()))
+    seqs = [s for s, _ in read_fasta(os.path.join(out, "contigs.fasta"))]
+    source = assign_sources(seqs, tables)
+    grades = {}
+    for name, genome in genomes.items():
+        mine = [s for s, src in zip(seqs, source) if src == name]
+        rep = assess.assess(mine, genome)
+        near = [hits_in(packed_kmers(dna.encode_str(s))[::8], island).any()
+                for s in mine]
+        outside = sum(pc.get("misassemblies", 0)
+                      for pc, isl in zip(rep.per_contig, near) if not isl)
+        grades[name] = dict(rep.to_dict(), misassemblies_outside_island=
+                            outside, island_contigs=int(sum(near)))
+    grades["unassigned_contigs"] = sum(src is None for src in source)
+    return grades
+
+
+def phase_metagenome(device, tmp, scale: float = 1.0) -> dict:
+    """Phase 12: the metagenome at full size, (a) ``-1/-2 --meta``, (b)
+    ``--metaplasmid --only-assembler`` and (c) ``--metaviral
+    --only-assembler`` on the same reads."""
+    from spades_for_blackbird_tpu_torch.ops import dna, kmer_cuda
+    kernel = kmer_cuda.extract_sort_keys
+    t0 = time.perf_counter()
+    genomes, circles, windows = metagenome(scale)
+    mates, pairs = metagenome_reads(tmp, genomes, circles,
+                                    np.random.default_rng(26))
+    log(f"[meta] community of {len(genomes)} genomes "
+        f"({sum(map(len, genomes.values()))} bp) and {len(circles)} circles:"
+        f" 2 x {pairs} reads simulated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    record = {"reads": 2 * pairs}
+    out = os.path.join(tmp, "meta")
+    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--meta",
+            "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = mode_run(device, argv, kernel)
+    stages, spans = stage_seconds(out, [
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "repeat_resolution", "second_phase_setup",
+        "repeat_resolution_2", "contig_output"])
+    grades = grade_metagenome(out, genomes, circles, windows)
+    log(f"[meta] cli.main -1 -2 --meta: {wall:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, kernel launches {launches} {by_stage}")
+    for name, sec in stages.items():
+        log(f"[meta] stage {name}: {sec:.3f} s")
+    for name in ("red", "second_phase", "rcc", "hidden_ec", "simplify",
+                 "coverage_model_fit", "condense"):
+        log(f"[meta] scope {name}: {spans.get(name, 0.0):.3f} s")
+    for name in genomes:
+        gr = grades[name]
+        log(f"[meta] {name}: {gr['n_contigs']} contigs, NG50 {gr['ng50']},"
+            f" genome fraction {gr['genome_fraction']:.5f}, misassemblies "
+            f"{gr['misassemblies']} ({gr['misassemblies_outside_island']} "
+            f"outside the island, {gr['island_contigs']} island contigs)")
+    log(f"[meta] contigs from no one source: {grades['unassigned_contigs']}")
+    if by_stage.get("second_phase_setup", 0) <= 0:
+        raise AssertionError("second_phase_setup never launched the kernel")
+    for name, _, _, _, cov in META_GENOMES:
+        gr = grades[name]
+        if gr["misassemblies_outside_island"]:
+            raise AssertionError(f"--meta: misassemblies in {name}: {gr}")
+        if cov >= 20 and gr["genome_fraction"] < META_FRACTION:
+            raise AssertionError(f"--meta: {name} genome fraction "
+                                 f"{gr['genome_fraction']:.4f} < "
+                                 f"{META_FRACTION}")
+    record["meta"] = {"wall_s": wall, "launches": launches,
+                      "launches_by_stage": by_stage, "peak_bytes": peak,
+                      "stages_s": stages, "spans_s": spans,
+                      "grades": grades}
+    shutil.rmtree(out)
+    tables = {name: kmer_set(dna.encode_str(s))
+              for name, s in genomes.items()}
+
+    for mode in ("metaplasmid", "metaviral"):
+        out = os.path.join(tmp, mode)
+        argv = ["-1", mates[0], "-2", mates[1], "-o", out, f"--{mode}",
+                "--only-assembler", "-k", str(FULL_K), "--checkpoints",
+                "none", "--trace-time"]
+        with plain_extraction_refused():
+            wall, launches, by_stage, peak = mode_run(device, argv, kernel)
+        stages, spans = stage_seconds(out, [
+            "read_conversion", f"k{FULL_K}", "gap_closing",
+            "chromosome_removal", "repeat_resolution", "second_phase_setup",
+            "repeat_resolution_2", "contig_output"])
+        cutoffs = log_lines(out, ["metaplasmid cutoff"])
+        comps = [s for f in sorted(os.listdir(out))
+                 if f.startswith("components_")
+                 for _, s in fasta_records(os.path.join(out, f))]
+        circ = fasta_records(os.path.join(out, "contigs.circular.fasta"))
+        src = assign_sources(comps, tables)
+        chrom_bases = sum(len(s) for s, x in zip(comps, src) if x)
+        shares = {name: best_share(c, comps + [s for _, s in circ])
+                  for name, c in circles.items()}
+        log(f"[meta] cli.main --{mode} --only-assembler -k {FULL_K}: "
+            f"{wall:.2f} s, peak "
+            f"device memory {peak / 2**30:.2f} GiB, kernel launches "
+            f"{launches} {by_stage}; {len(cutoffs)} cutoff rounds, "
+            f"chromosome_removal {spans.get('chromosome_removal', 0.0):.3f} "
+            f"s; {len(comps)} component records of "
+            f"{sum(map(len, comps))} bases, {chrom_bases} of them "
+            f"chromosomal; circles held {shares}")
+        for name, sec in stages.items():
+            log(f"[meta] {mode} stage {name}: {sec:.3f} s")
+        for line in cutoffs[:3] + cutoffs[-2:] + log_lines(
+                out, ["chromosome removal:", "circular output",
+                      "linear viral"]):
+            log(f"[meta] {mode} log: {line}")
+        for name, share in shares.items():
+            if share < CIRCLE_SHARE:
+                raise AssertionError(f"--{mode}: no record holds "
+                                     f"{CIRCLE_SHARE:.0%} of {name} "
+                                     f"({share:.3f})")
+        rec = {"wall_s": wall, "launches": launches,
+               "launches_by_stage": by_stage, "peak_bytes": peak,
+               "stages_s": stages, "spans_s": spans,
+               "cutoff_rounds": len(cutoffs), "component_records":
+               len(comps), "chromosomal_bases": chrom_bases,
+               "circle_shares": shares}
+        if mode == "metaviral":
+            linears = os.path.join(out, "contigs.linears.fasta")
+            if not os.path.exists(linears):
+                raise AssertionError("--metaviral wrote no "
+                                     "contigs.linears.fasta")
+            phage = best_share(circles["phage_45k"], [
+                s for n, s in circ if n.endswith("_circular")])
+            log(f"[meta] metaviral: the phage's share in a circular record "
+                f"{phage:.3f}; {len(fasta_records(linears))} linear "
+                f"candidates")
+            if phage < CIRCLE_SHARE:
+                raise AssertionError("--metaviral does not list the phage "
+                                     "as circular")
+            rec["phage_circular_share"] = phage
+        record[mode] = rec
+        shutil.rmtree(out)
+    for path in mates:
+        os.remove(path)
+    return record
+
+
+# phase 13: (name, size, seed, copies of the chromosome) of the plasmids
+PLASMIDS = (("plasmid_12k", 12_000, 41, 10), ("plasmid_60k", 60_000, 42, 3))
+
+
+def phase_plasmid(device, genome, codes, quals, tmp) -> dict:
+    """Phase 13: ``-1/-2 --plasmid`` on phase 8's reads plus two circular
+    plasmids over the 10 kb small-component bound."""
+    from spades_for_blackbird_tpu_torch.ops import dna, kmer_cuda
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    kernel = kmer_cuda.extract_sort_keys
+    rng = np.random.default_rng(43)
+    t0 = time.perf_counter()
+    half = codes.shape[0] // 2
+    plasmids = {name: simulate.random_genome(size, seed=seed)
+                for name, size, seed, _ in PLASMIDS}
+    extra = [sample_pairs(rng, dna.encode_str(plasmids[name]),
+                          int(size * FULL_COVERAGE * copies / 200),
+                          circular=True)
+             for name, size, _, copies in PLASMIDS]
+    mates = [os.path.join(tmp, f"plasmid_{m}.fastq") for m in (1, 2)]
+    for m, path in enumerate(mates):
+        ec, eq = with_errors(rng, np.concatenate([e[m] for e in extra]))
+        part = slice(0, half) if m == 0 else slice(half, None)
+        write_fastq(path, np.concatenate([codes[part], ec]),
+                    np.concatenate([quals[part], eq]))
+    n_extra = sum(len(e[0]) for e in extra)
+    log(f"[plasmid] phase 8's 2 x {half} reads plus 2 x {n_extra} of the "
+        f"plasmids written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "plasmid")
+    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--plasmid",
+            "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = mode_run(device, argv, kernel)
+    stages, spans = stage_seconds(out, [
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "chromosome_removal", "repeat_resolution",
+        "contig_output"])
+    seqs = [s for s, _ in read_fasta(os.path.join(out, "contigs.fasta"))]
+    circ = [s for _, s in fasta_records(
+        os.path.join(out, "contigs.circular.fasta"))]
+    shares = {name: best_share(p, seqs + circ)
+              for name, p in plasmids.items()}
+    chrom = kmer_set(dna.encode_str(genome))
+    src = assign_sources(seqs, {"chromosome": chrom})
+    chrom_bases = sum(len(s) for s, x in zip(seqs, src) if x)
+    total = sum(map(len, seqs))
+    log(f"[plasmid] cli.main -1 -2 --plasmid: {wall:.2f} s, peak device "
+        f"memory {peak / 2**30:.2f} GiB, kernel launches {launches} "
+        f"{by_stage}; {len(seqs)} contigs of {total} bases, the "
+        f"chromosome's share {chrom_bases / max(total, 1):.4f}; "
+        f"{len(circ)} circular candidates; plasmids held {shares}")
+    for name, sec in stages.items():
+        log(f"[plasmid] stage {name}: {sec:.3f} s")
+    for line in log_lines(out, ["chromosome removal:", "circular output"]):
+        log(f"[plasmid] log: {line}")
+    for name, share in shares.items():
+        if share < CIRCLE_SHARE:
+            raise AssertionError(f"--plasmid: no record holds "
+                                 f"{CIRCLE_SHARE:.0%} of {name} "
+                                 f"({share:.3f})")
+    shutil.rmtree(out)
+    for path in mates:
+        os.remove(path)
+    return {"wall_s": wall, "launches": launches,
+            "launches_by_stage": by_stage, "peak_bytes": peak,
+            "stages_s": stages, "spans_s": spans, "contigs": len(seqs),
+            "bases": total, "chromosome_bases": chrom_bases,
+            "plasmid_shares": shares}
+
+
+RNA_GENES = 1500
+RNA_MAX_PAIRS = 2_000_000
+RNA_K = 49                # phase 14 (a): the last rung of the rna ladder
+ISOFORM_COVERAGE = 20.0   # isoforms graded: expressed at >= 20x
+ISOFORM_SHARE = 0.90      # share of an isoform one contig must hold
+# share of the graded isoforms that must pass. The strand split of both
+# packages counts the second mate of a stranded FR pair on the other
+# strand, so it cuts most transcripts in two; on a 1/20 cut of this data
+# the JAX package keeps 21 of 34 isoforms before the split and 1 of 34
+# after it, with a graph bit-equal to the port's (ROADMAP.md, Queue 3).
+# The bar guards against a broken assembly, not against the reference.
+ISOFORM_BAR = 0.10
+
+
+def transcriptome(rng, n_genes: int):
+    """Genes of 2-6 exons with 1-3 isoforms each (the first has every
+    exon, the others skip one internal exon), transcripts of 500-5,000
+    bases; 10% of the genes overlap their neighbour antisense (their
+    first exon begins with the reverse complement of the neighbour's
+    last 300 bases). Returns [(isoform, coverage)]: coverage log-normal,
+    median 20x, sigma 1.5, capped at 2,000x, shared by a gene's isoforms
+    in 60/30/10 shares."""
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    out = []
+    prev_last = None
+    for gene in range(n_genes):
+        n_ex = int(rng.integers(2, 7))
+        length = int(rng.integers(500, 5001))
+        cuts = np.sort(rng.choice(np.arange(100, length - 99), n_ex - 1,
+                                  replace=False))
+        full = simulate.random_genome(length, seed=1000 + gene,
+                                      gc=float(rng.uniform(0.4, 0.6)))
+        if prev_last is not None and rng.random() < 0.10:
+            full = revcomp(prev_last) + full[300:]
+        exons = np.split(np.frombuffer(full.encode(), np.uint8),
+                         cuts)
+        exons = [e.tobytes().decode() for e in exons]
+        prev_last = exons[-1][-300:] if len(exons[-1]) >= 300 else None
+        expr = min(20.0 * float(np.exp(1.5 * rng.standard_normal())),
+                   2000.0)
+        n_iso = min(int(rng.integers(1, 4)), max(1, n_ex - 1))
+        skips = [None] + list(rng.choice(np.arange(1, n_ex - 1),
+                                         n_iso - 1, replace=False)
+                              if n_ex > 2 else [])
+        for share, skip in zip((0.6, 0.3, 0.1) if len(skips) > 1 else (1.0,),
+                               skips):
+            iso = "".join(e for i, e in enumerate(exons) if i != skip)
+            out.append((iso, expr * share))
+    return out
+
+
+def revcomp(s: str) -> str:
+    from spades_for_blackbird_tpu_torch.ops import dna
+    return dna.revcomp_str(s)
+
+
+def phase_rna(device, tmp, scale: float = 1.0) -> dict:
+    """Phase 14: (a) ``-1/-2 --rna --ss fr`` on stranded pairs of a
+    simulated transcriptome; (b) ``-1/-2 --rnaviral`` on a 30 kb virus as
+    three haplotypes."""
+    from spades_for_blackbird_tpu_torch.ops import dna, kmer_cuda
+    from spades_for_blackbird_tpu_torch.utils import assess, simulate
+    kernel = kmer_cuda.extract_sort_keys
+    rng = np.random.default_rng(51)
+    t0 = time.perf_counter()
+    isoforms = transcriptome(rng, max(int(RNA_GENES * scale), 4))
+    want = sum(len(s) * c / 200 for s, c in isoforms)
+    cut = min(1.0, RNA_MAX_PAIRS * scale / want)
+    parts = [sample_pairs(rng, dna.encode_str(s), int(len(s) * c * cut
+                                                      / 200),
+                          stranded=True, insert_mean=250.0)
+             for s, c in isoforms]
+    mates, pairs = write_mates(tmp, "rna", parts, rng)
+    log(f"[rna] {len(isoforms)} isoforms of {int(RNA_GENES * scale)} genes "
+        f"({sum(len(s) for s, _ in isoforms)} bases), stranded 2 x {pairs} "
+        f"reads (coverage x{cut:.3f}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "rna")
+    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--rna", "--ss",
+            "fr", "-k", str(RNA_K), "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = mode_run(device, argv, kernel)
+    stages, spans = stage_seconds(out, [
+        "read_conversion", "error_correction", f"k{RNA_K}",
+        "ss_edge_split", "gap_closing", "repeat_resolution",
+        "contig_output"])
+    seqs = [s for s, _ in read_fasta(os.path.join(out, "contigs.fasta"))]
+    tables = [kmer_set(dna.encode_str(s)) for s in seqs]
+    graded, held = 0, 0
+    for iso, cov in isoforms:
+        if cov * cut < ISOFORM_COVERAGE:
+            continue
+        graded += 1
+        km = kmer_set(dna.encode_str(iso))
+        if any(hits_in(km, t).sum() >= ISOFORM_SHARE * len(km)
+               for t in tables if len(t) >= ISOFORM_SHARE * len(km)):
+            held += 1
+    share = held / max(graded, 1)
+    log(f"[rna] cli.main -1 -2 --rna --ss fr -k {RNA_K}: {wall:.2f} s, "
+        f"peak device "
+        f"memory {peak / 2**30:.2f} GiB, kernel launches {launches} "
+        f"{by_stage}; {len(seqs)} contigs; isoforms at >= "
+        f"{ISOFORM_COVERAGE:g}x held at >= {ISOFORM_SHARE:.0%} by one "
+        f"contig: {held} of {graded} ({share:.4f})")
+    for name, sec in stages.items():
+        log(f"[rna] stage {name}: {sec:.3f} s")
+    for name in ("superbubble", "low_complexity", "ss_edge_split",
+                 "simplify", "coverage_model_fit"):
+        log(f"[rna] scope {name}: {spans.get(name, 0.0):.3f} s")
+    for line in log_lines(out, ["ss edge split"]):
+        log(f"[rna] log: {line}")
+    if by_stage.get("ss_edge_split", 0) <= 0:
+        raise AssertionError("ss_edge_split never launched the kernel")
+    if share < ISOFORM_BAR:
+        raise AssertionError(f"--rna: {share:.3f} of the isoforms held, "
+                             f"under {ISOFORM_BAR}")
+    record = {"isoforms": len(isoforms), "reads": 2 * pairs,
+              "coverage_cut": cut, "rna": {
+                  "wall_s": wall, "launches": launches,
+                  "launches_by_stage": by_stage, "peak_bytes": peak,
+                  "stages_s": stages, "spans_s": spans,
+                  "graded": graded, "held": held}}
+    shutil.rmtree(out)
+    for path in mates:
+        os.remove(path)
+
+    # (b) a 30 kb RNA virus as three haplotypes, 80/15/5 at 2,000x
+    major = simulate.random_genome(int(30_000 * max(scale, 0.1)), seed=52)
+    g = dna.encode_str(major)
+    parts = []
+    for div, mix in ((0.0, 0.80), (0.01, 0.15), (0.03, 0.05)):
+        hap = g.copy()
+        hit = rng.random(len(g)) < div
+        hap[hit] = (hap[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        parts.append(sample_pairs(rng, hap, int(len(g) * 2000 * mix / 200)))
+    mates, pairs = write_mates(tmp, "virus", parts, rng)
+    out = os.path.join(tmp, "rnaviral")
+    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--rnaviral",
+            "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = mode_run(device, argv, kernel)
+    stages, spans = stage_seconds(out, [
+        "read_conversion", "error_correction", "k21", "k33", "k49",
+        "gap_closing", "repeat_resolution", "contig_output"])
+    rep = assess.assess([s for s, _ in read_fasta(
+        os.path.join(out, "contigs.fasta"))], major)
+    log(f"[rna] cli.main -1 -2 --rnaviral, 2 x {pairs} reads: {wall:.2f} "
+        f"s, peak device memory {peak / 2**30:.2f} GiB, kernel launches "
+        f"{launches}; the major haplotype: {rep.n_contigs} contigs, NG50 "
+        f"{rep.ng50}, genome fraction {rep.genome_fraction:.5f}, "
+        f"misassemblies {rep.misassemblies}; red "
+        f"{spans.get('red', 0.0):.3f} s")
+    for name, sec in stages.items():
+        log(f"[rna] rnaviral stage {name}: {sec:.3f} s")
+    if rep.genome_fraction < META_FRACTION:
+        raise AssertionError(f"--rnaviral: the major haplotype's genome "
+                             f"fraction {rep.genome_fraction:.4f}")
+    record["rnaviral"] = {"wall_s": wall, "launches": launches,
+                          "launches_by_stage": by_stage, "peak_bytes": peak,
+                          "stages_s": stages, "spans_s": spans,
+                          "reads": 2 * pairs, "assess": rep.to_dict()}
+    shutil.rmtree(out)
+    for path in mates:
+        os.remove(path)
+    return record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--host-profile", action="store_true",
-                    help="phase 5 also runs the assembly under cProfile")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -1834,28 +2495,41 @@ def main(argv=None) -> int:
 
     record = {"card": card}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    seconds = record["phase_s"] = {}
+
+    def timed(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*fn_args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+            log(f"[timing] {name}: {seconds[name]:.1f} s")
     try:
-        record["build"] = phase_build()
-        record["kernel_vs_plain"] = phase_kernel_vs_plain(device)
-        record["gpu_vs_cpu"] = phase_gpu_vs_cpu(device)
+        record["build"] = timed("build", phase_build)
+        record["kernel_vs_plain"] = timed("kernel_vs_plain",
+                                          phase_kernel_vs_plain, device)
+        record["gpu_vs_cpu"] = timed("gpu_vs_cpu", phase_gpu_vs_cpu, device)
         record["full"], (genome, codes, lengths, quals, graph) = \
-            phase_full(device)
-        record["profile"] = phase_profile(device, codes, lengths,
-                                          args.host_profile)
-        record["ladder"] = phase_ladder(device)
-        record["hammer"] = phase_hammer(device, genome, codes, lengths,
-                                        quals)
-        record["paired"] = phase_paired(device, genome, codes, lengths,
-                                        quals, tmp)
+            timed("full", phase_full, device)
+        record["ladder"] = timed("ladder", phase_ladder, device)
+        record["hammer"] = timed("hammer", phase_hammer, device, genome,
+                                 codes, lengths, quals)
+        record["paired"] = timed("paired", phase_paired, device, genome,
+                                 codes, lengths, quals, tmp)
         mates = record["paired"]["mates"]
-        record["careful"] = phase_careful(device, genome, graph, codes,
-                                          lengths, mates, tmp)
+        record["careful"] = timed("careful", phase_careful, device, genome,
+                                  graph, codes, lengths, mates, tmp)
         del graph
-        record["sc"] = phase_sc(device, genome, tmp)
-        record["fork"] = phase_fork(
-            device, genome, codes, lengths, mates, os.path.join(
-                record["paired"]["out"], "assembly_graph_with_scaffolds.gfa"),
-            tmp)
+        record["sc"] = timed("sc", phase_sc, device, genome, tmp)
+        record["fork"] = timed(
+            "fork", phase_fork, device, genome, codes, lengths, mates,
+            os.path.join(record["paired"]["out"],
+                         "assembly_graph_with_scaffolds.gfa"), tmp)
+        record["metagenome"] = timed("metagenome", phase_metagenome, device,
+                                     tmp)
+        record["plasmid"] = timed("plasmid", phase_plasmid, device, genome,
+                                  codes, quals, tmp)
+        record["rna"] = timed("rna", phase_rna, device, tmp)
     except Exception:  # any failed phase fails the smoke
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1879,6 +2553,8 @@ def main(argv=None) -> int:
     hammer = record["hammer"]
     paired = record["paired"]
     careful, sc, fork = record["careful"], record["sc"], record["fork"]
+    meta, plasmid, rna = (record["metagenome"], record["plasmid"],
+                          record["rna"])
     sites = {
         "single_k": record["full"]["launches"],
         "ladder_cli": record["ladder"]["launches"],
@@ -1897,14 +2573,25 @@ def main(argv=None) -> int:
         "restricted_in_simplify":
             fork["runs"]["restricted"]["launches_in_simplify"],
         "free_single_k": fork["runs"]["free"]["launches"],
-        "gfa_input_cli": fork["gfa_launches"]}
+        "gfa_input_cli": fork["gfa_launches"],
+        "meta_cli": meta["meta"]["launches"],
+        "second_phase":
+            meta["meta"]["launches_by_stage"]["second_phase_setup"],
+        "metaplasmid_cli": meta["metaplasmid"]["launches"],
+        "metaviral_cli": meta["metaviral"]["launches"],
+        "plasmid_cli": plasmid["launches"],
+        "rna_cli": rna["rna"]["launches"],
+        "ss_edge_split": rna["rna"]["launches_by_stage"]["ss_edge_split"],
+        "rnaviral_cli": rna["rnaviral"]["launches"]}
     # the main paths' runs; gap_closing, repeat_resolution,
-    # careful_stage and restricted_in_simplify count launches inside them
+    # careful_stage, restricted_in_simplify, second_phase and
+    # ss_edge_split count launches inside them
     launches = sum(sites[name] for name in (
         "single_k", "ladder_cli", "correct_reads", "default_cli",
         "paired_cli", "correct_mismatches", "careful_cli", "sc_cli",
         "uneven_single_k", "restricted_single_k", "free_single_k",
-        "gfa_input_cli"))
+        "gfa_input_cli", "meta_cli", "metaplasmid_cli", "metaviral_cli",
+        "plasmid_cli", "rna_cli", "rnaviral_cli"))
     log("kernel launches on the main paths: " + ", ".join(
         f"{name} {n}" for name, n in sites.items()))
     strand_row = next(r for r in rows if r.get("strand_ms") is not None

@@ -13,11 +13,16 @@ spades.log, params.json, saves/).
 The run is on a CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits 1 before it reads anything. Stages whose
 modules are not ported yet hold their places in the stage list; a run
-that would reach one exits 2 before any work, naming them: every mode
-but isolate, ``--sc`` and ``--large-genome``, and long reads
-(``--pacbio``, ``--nanopore``, ``--sanger``). ``--careful`` adds mismatch
-correction after gap closing; ``--assembly-graph`` loads a GFA graph in
-place of the K ladder.
+that would reach one exits 2 before any work, naming them: long reads
+(``--pacbio``, ``--nanopore``, ``--sanger``), the HMM stages (``--bio``,
+and ``--corona`` with ``--custom-hmms``) and ``--series-analysis``.
+``--careful`` adds mismatch correction after gap closing;
+``--assembly-graph`` loads a GFA graph in place of the K ladder. The
+modes run as in the JAX package: ``--meta`` with its second phase and
+second repeat resolution, ``--plasmid``, ``--metaplasmid`` and
+``--metaviral`` with chromosome removal and the circular (and linear)
+candidates, ``--rna`` with its strand split (``--ss``), ``--rnaviral``,
+``--corona`` without HMMs (as rnaviral), ``--moleculo`` and ``--sc``.
 
 Paired libraries (``-1/-2``, ``--12``, ``--mp-1/--mp-2``) add gap
 closing and paired repeat resolution (exSPAnder path extension, loop
@@ -265,12 +270,16 @@ def _run(args, device) -> int:
     if mode == "bio" and not args.custom_hmms:
         return _error("--bio requires --custom-hmms <file-or-dir of .hmm "
                       "models>")
+    if mode == "corona" and not args.custom_hmms:
+        # the reference bundles coronaspades_hmms (options_parser.py:937);
+        # the set ships out-of-tree here, so the domain stages are
+        # skipped unless a set is supplied
+        log("warning: --corona without --custom-hmms: HMM domain-graph "
+            "postprocessing skipped (supply the coronavirus HMM set "
+            "via --custom-hmms)")
     if args.custom_hmms and not os.path.exists(args.custom_hmms):
         return _error(f"--custom-hmms path not found: {args.custom_hmms}")
-    try:
-        cfg = config_for_mode(mode, careful=args.careful)
-    except NotImplementedError as e:
-        return _error(f"mode {mode}: {e}")
+    cfg = config_for_mode(mode, careful=args.careful)
     if cfg.ks is not None and not args.k_list:
         ks = [k for k in cfg.ks if k < read_length]
         log(f"mode {mode}: K values {ks}")

@@ -8,16 +8,13 @@ pipeline mode enum at config_struct.hpp:38-50): a base dataclass plus
 per-mode overlay functions mirroring the reference's mode files.
 
 Modes (configs/debruijn/*_mode.info): isolate (base), meta, plasmid,
-metaplasmid, rna, single-cell (sc) and the rest of ``MODES``. The port's
-``SimplifyConfig`` holds the tuning fields of the passes it runs; an
-overlay that sets a field of a pass not ported yet raises
-``NotImplementedError`` naming the field (``_simplify``), so no mode drops
-a setting silently. ``isolate`` and ``sc`` work fully.
+metaplasmid, rna, single-cell (sc) and the rest of ``MODES``; every
+overlay builds, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields, replace
+from dataclasses import dataclass, field, replace
 
 from ..simplify.runner import SimplifyConfig
 from ..path_extend.resolver import PEParams
@@ -64,35 +61,20 @@ class AssemblyConfig:
     scaffolding_mode: str = "old"
 
 
-_SIMPLIFY_FIELDS = frozenset(f.name for f in fields(SimplifyConfig))
-
-
-def _simplify(cfg: AssemblyConfig, **settings) -> SimplifyConfig:
-    """``cfg.simplify`` with ``settings`` laid over it."""
-    missing = sorted(set(settings) - _SIMPLIFY_FIELDS)
-    if missing:
-        raise NotImplementedError(
-            f"SimplifyConfig.{missing[0]}: this mode tunes a simplification "
-            f"pass that is not ported to PyTorch yet (also: "
-            f"{', '.join(missing[1:]) or 'none'}; ROADMAP.md, Queue 1, "
-            f"'Still to port')")
-    return replace(cfg.simplify, **settings)
-
-
 def _meta(cfg: AssemblyConfig) -> AssemblyConfig:
     # meta_mode.info: cycle_iter_count 3, ec "{ec_lb 30, icb 2.5}",
     # harsher tip clipping, two-step RR; rcc block (meta_mode.info:38-47:
     # gap 5, length_coeff 3, tips_coeff 5, vcnt 100, ec_len 300, no max
     # cov); red disconnector (:56-61 diff_mult 10, unconditional 50);
     # meta hidden-EC remover (simplification.cpp:319, relative 3)
-    simp = _simplify(cfg, rounds=3, ec_icb=2.5, ec_lb_additive=30,
-                     rcc_enabled=True, rcc_coverage_gap=5.0,
-                     rcc_length_coeff=3.0, rcc_tip_allowing_coeff=5.0,
-                     rcc_vertex_limit=100, rcc_max_ec_len_additive=300,
-                     rcc_max_coverage_coeff=-1.0,
-                     red_enabled=True, red_diff_mult=10.0,
-                     red_unconditional_diff_mult=50.0,
-                     her_meta=True, her_relative_threshold=3.0)
+    simp = replace(cfg.simplify, rounds=3, ec_icb=2.5, ec_lb_additive=30,
+                   rcc_enabled=True, rcc_coverage_gap=5.0,
+                   rcc_length_coeff=3.0, rcc_tip_allowing_coeff=5.0,
+                   rcc_vertex_limit=100, rcc_max_ec_len_additive=300,
+                   rcc_max_coverage_coeff=-1.0,
+                   red_enabled=True, red_diff_mult=10.0,
+                   red_unconditional_diff_mult=50.0,
+                   her_meta=True, her_relative_threshold=3.0)
     return replace(cfg, mode="meta", two_step_rr=True,
                    use_intermediate_contigs=True, simplify=simp,
                    uneven_depth=True)
@@ -115,10 +97,10 @@ def _rna(cfg: AssemblyConfig) -> AssemblyConfig:
     # tip condition "{ mmm 3 tc_lb 4, cb 100000, rctc 0.5 }
     # { tc_lb 2, cb 1, rctc 10000 }" (rna_mode.info:56) and the
     # low-complexity AT edge/tip clippers (rna_simplification.hpp)
-    simp = _simplify(cfg, superbubble_enabled=True,
-                     tip_clauses=((4.0, 100000.0, 0.5, 3.0),
-                                  (2.0, 1.0, 10000.0)),
-                     low_complexity_enabled=True)
+    simp = replace(cfg.simplify, superbubble_enabled=True,
+                   tip_clauses=((4.0, 100000.0, 0.5, 3.0),
+                                (2.0, 1.0, 10000.0)),
+                   low_complexity_enabled=True)
     # uneven_depth covers mda/rna/meta/metaextrachromosomal/rnaviral
     # (config_struct.cpp:899-900)
     return replace(cfg, mode="rna", ks=cfg.ks or [33, 49],
@@ -131,14 +113,14 @@ def _sc(cfg: AssemblyConfig) -> AssemblyConfig:
     # thresholds; rcc (mda_mode.info:39-48: gap 10, lengths 2/3, vcnt 30,
     # max_cov_coeff 5); hidden-EC remover (:57-63: unreliability 0.2,
     # relative 5)
-    simp = _simplify(cfg, ec_icb=1.2,
-                     rcc_enabled=True, rcc_coverage_gap=10.0,
-                     rcc_length_coeff=2.0, rcc_tip_allowing_coeff=3.0,
-                     rcc_vertex_limit=30, rcc_max_ec_len_additive=30,
-                     rcc_max_coverage_coeff=5.0,
-                     her_enabled=True, her_unreliability_coeff=0.2,
-                     her_relative_threshold=5.0,
-                     tec_enabled=True)
+    simp = replace(cfg.simplify, ec_icb=1.2,
+                   rcc_enabled=True, rcc_coverage_gap=10.0,
+                   rcc_length_coeff=2.0, rcc_tip_allowing_coeff=3.0,
+                   rcc_vertex_limit=30, rcc_max_ec_len_additive=30,
+                   rcc_max_coverage_coeff=5.0,
+                   her_enabled=True, her_unreliability_coeff=0.2,
+                   her_relative_threshold=5.0,
+                   tec_enabled=True)
     return replace(cfg, mode="sc", simplify=simp, uneven_depth=True)
 
 
@@ -150,16 +132,16 @@ def _rnaviral(cfg: AssemblyConfig) -> AssemblyConfig:
     # unconditional 50, edge_sum 0); final_br disabled (:29-32).
     # K ladder: rna values prefixed with 21
     # (spades_stage.py:117-127 generateK_for_rnaviral).
-    simp = _simplify(cfg,
-                     bulge_length_coeff=30.0,
-                     bulge_max_coverage=1_000_000.0,
-                     bulge_max_rel_coverage=15.0,
-                     bulge_rel_delta=0.2,
-                     bulge_min_identity=0.9,
-                     final_br_enabled=False,
-                     red_enabled=True, red_diff_mult=10.0,
-                     red_unconditional_diff_mult=50.0,
-                     red_edge_sum=0)
+    simp = replace(cfg.simplify,
+                   bulge_length_coeff=30.0,
+                   bulge_max_coverage=1_000_000.0,
+                   bulge_max_rel_coverage=15.0,
+                   bulge_rel_delta=0.2,
+                   bulge_min_identity=0.9,
+                   final_br_enabled=False,
+                   red_enabled=True, red_diff_mult=10.0,
+                   red_unconditional_diff_mult=50.0,
+                   red_edge_sum=0)
     return replace(cfg, mode="rnaviral", ks=cfg.ks or [21, 33, 49],
                    simplify=simp, uneven_depth=True)
 
@@ -181,12 +163,12 @@ def _metaviral(cfg: AssemblyConfig) -> AssemblyConfig:
     # linear dead-end-bounded candidates are emitted too
     # (contig_output_stage.cpp:221-240 GetTipScaffolds)
     cfg = _meta(cfg)
-    simp = _simplify(cfg,
-                     bulge_length_coeff=30.0,
-                     bulge_max_coverage=1_000_000.0,
-                     bulge_max_rel_coverage=15.0,
-                     bulge_rel_delta=0.2,
-                     bulge_min_identity=0.7)
+    simp = replace(cfg.simplify,
+                   bulge_length_coeff=30.0,
+                   bulge_max_coverage=1_000_000.0,
+                   bulge_max_rel_coverage=15.0,
+                   bulge_rel_delta=0.2,
+                   bulge_min_identity=0.7)
     return replace(cfg, mode="metaviral", chromosome_removal=True,
                    circular_output=True, simplify=simp,
                    plasmid_output_linear=True,
@@ -199,17 +181,17 @@ def _moleculo(cfg: AssemblyConfig) -> AssemblyConfig:
     # cb 3, rctc 10000} {tc_lb 4.5, mmm 2}", br max_coverage 3, ec
     # "{ec_lb 30, icb 3.1}", rcc (gap 20, coeffs 2/3, vcnt 30, ec_len 30,
     # max_cov 5), her (1500, 0.2, 5), topology_simplif off
-    simp = _simplify(cfg,
-                     tip_clauses=((2.5, 3.0, 10000.0), (4.5, None, None, 2.0)),
-                     bulge_max_coverage=3.0,
-                     bulge_max_rel_coverage=100000.0,
-                     ec_lb_additive=30, ec_icb=3.1,
-                     rcc_enabled=True, rcc_coverage_gap=20.0,
-                     rcc_length_coeff=2.0, rcc_tip_allowing_coeff=3.0,
-                     rcc_vertex_limit=30, rcc_max_ec_len_additive=30,
-                     rcc_max_coverage_coeff=5.0,
-                     her_enabled=True, her_unreliability_coeff=0.2,
-                     her_relative_threshold=5.0)
+    simp = replace(cfg.simplify,
+                   tip_clauses=((2.5, 3.0, 10000.0), (4.5, None, None, 2.0)),
+                   bulge_max_coverage=3.0,
+                   bulge_max_rel_coverage=100000.0,
+                   ec_lb_additive=30, ec_icb=3.1,
+                   rcc_enabled=True, rcc_coverage_gap=20.0,
+                   rcc_length_coeff=2.0, rcc_tip_allowing_coeff=3.0,
+                   rcc_vertex_limit=30, rcc_max_ec_len_additive=30,
+                   rcc_max_coverage_coeff=5.0,
+                   her_enabled=True, her_unreliability_coeff=0.2,
+                   her_relative_threshold=5.0)
     return replace(cfg, mode="moleculo", simplify=simp)
 
 

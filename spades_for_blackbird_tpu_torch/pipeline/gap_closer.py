@@ -72,7 +72,11 @@ def close_gaps(g: Graph, codes1, lengths1, codes2, lengths2,
     alive = h.mask
     start_v, end_v, conj, lens = h.start_v, h.end_v, h.conj, h.seq_len
 
-    v_space = 4 * E + 2
+    # the JAX package sizes the degree tables 4E + 2, which the strand
+    # split's graph (new vertices, no padding) can outgrow: it raises
+    # there (ROADMAP.md, Queue 3); a larger table changes no degree
+    v_space = max(4 * E + 2, int(max(start_v.max(initial=0),
+                                     end_v.max(initial=0))) + 1)
     out_deg = np.zeros(v_space, np.int64)
     in_deg = np.zeros(v_space, np.int64)
     np.add.at(out_deg, start_v[alive], 1)

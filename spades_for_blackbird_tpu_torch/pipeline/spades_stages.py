@@ -6,15 +6,18 @@ ReadConversion -> [ErrorCorrection] -> one iteration stage per K
 (Construction + GenomicInfoFiller + Simplification fused) ->
 [GapClosing] -> RepeatResolution -> ContigOutput.
 
-Ported so far: read conversion, error correction (BayesHammer, or
-IonHammer with --iontorrent), the iteration stages or, with
---assembly-graph, loading the graph from a GFA file, gap closing,
-mismatch correction (--careful), repeat resolution (paired libraries
-through exSPAnder path extension and scaffolding; without one the
-contigs pass through), and contig output. Every other stage of the JAX
-package's list still takes its place under its name, as a stage that
-raises ``NotImplementedError`` (``_unported``); ``cli.main`` reads their
-``unported`` field before it runs anything.
+Ported: read conversion, error correction (BayesHammer, or IonHammer
+with --iontorrent), the iteration stages or, with --assembly-graph,
+loading the graph from a GFA file, rna's strand split (--ss), gap
+closing, mismatch correction (--careful), plasmidSPAdes' chromosome
+removal (--plasmid, --metaplasmid, --metaviral), repeat resolution
+(paired libraries through exSPAnder path extension and scaffolding;
+without one the contigs pass through), meta's second phase and second
+repeat resolution, and contig output with the circular and linear
+candidates. The stages of hybrid long-read input, the HMM modes and the
+series analysis still take their places under their names, as stages
+that raise ``NotImplementedError`` (``_unported``); ``cli.main`` reads
+their ``unported`` field before it runs anything.
 """
 
 from __future__ import annotations
@@ -26,11 +29,14 @@ import numpy as np
 import torch
 
 from ..graph.from_gfa import graph_from_gfa
+from ..graph.graph import edge_mask
 from ..hammer import correct as hammer_correct
 from ..hammer import ionhammer
 from ..io import fasta, fastg, fastq, gfa
+from ..models import plasmid, rna
 from ..ops import dna
 from ..utils.device import resolve_device
+from ..utils.timetrace import device_scope
 from . import assemble, gap_closer, mismatch_correction
 from .config import AssemblyConfig
 from .stages import PipelineContext, Stage
@@ -243,6 +249,110 @@ def _paired_lib_arrays(ctx: PipelineContext):
     return libs
 
 
+def make_chromosome_removal(log, cfg, output_dir=None):
+    """ChromosomeRemoval stage (projects/spades/chromosome_removal.cpp).
+
+    plasmid mode runs the iterated isolated pipeline
+    (chromosome_remover.cpp RunIsolatedPipeline); metaplasmid/metaviral
+    runs the rising-coverage-cutoff loop (pipeline.cpp:85-97) and writes
+    each cutoff's suspicious components (components_NNNN.fasta). The
+    graph stays where it lies; the masks are built on the host."""
+    def run(ctx: PipelineContext):
+        if ctx.graph is None:
+            return
+        params = plasmid.PlasmidParams(
+            long_edge_length=cfg.plasmid_min_edge_length,
+            relative_coverage=cfg.plasmid_coverage_uniformity)
+        with device_scope("chromosome_removal", ctx.graph.device):
+            if cfg.mode in ("metaplasmid", "metaviral"):
+                ctx.graph, ctx.contigs = _metaplasmid_candidates(
+                    ctx.graph, params, output_dir, log)
+            else:
+                g = plasmid.run_isolated_pipeline(ctx.graph, params, log=log)
+                ctx.graph = g
+                ctx.contigs = fasta.graph_contigs(g, min_length=2 * g.k)
+        log(f"chromosome removal: {len(ctx.contigs)} candidate edges left")
+    return Stage("chromosome_removal", run)
+
+
+def _metaplasmid_candidates(g, params, output_dir, log):
+    """The rising-cutoff loop: (the last graph with an alive edge, the
+    union of every cutoff's candidates)."""
+    rounds = plasmid.metaplasmid_iterate(g, params, log=log)
+    for cov, _, susp in rounds:
+        if susp and output_dir:
+            plasmid.write_component_fasta(
+                os.path.join(output_dir, f"components_{cov:04d}.fasta"),
+                cov, susp)
+    # the reference emits plasmid contigs per cutoff (ContigOutput after
+    # each ChromosomeRemoval round, pipeline.cpp:85-97), so the final set
+    # is the UNION of per-cutoff candidates, low-coverage plasmids
+    # eliminated at later cutoffs included, deduplicated by canonical
+    # sequence
+    g = next((rg for _, rg, _ in reversed(rounds)
+              if bool(edge_mask(rg).any())), rounds[-1][1] if rounds else g)
+    seen = set()
+    union: list[tuple[str, float]] = []
+
+    def add(s, cov):
+        key = min(s, dna.revcomp_str(s))
+        if key not in seen:
+            seen.add(key)
+            union.append((s, cov))
+    for s, cov in fasta.graph_contigs(g, min_length=2 * g.k):
+        add(s, cov)
+    for _cut, _, susp in rounds:
+        for records in susp:
+            for _eid, s, ln, cov in records:
+                if ln >= 2 * g.k:
+                    add(s, cov)
+    return g, union
+
+
+def make_ss_edge_split(ss_orientation: str, log, device=None):
+    """SSEdgeSplit stage (common/stages/ss_edge_split.cpp:17-59): split
+    edges where the transcribed strand flips (strand-specific RNA). The
+    reads are mapped on ``device``: by default the card the context's
+    reads are on, else the first card; the CPU only on request."""
+    def run(ctx: PipelineContext):
+        if ctx.graph is None:
+            return
+        dev = resolve_device(device, ctx.codes)
+        with device_scope("ss_edge_split", dev):
+            g, n, _ = rna.split_edges_by_strand(
+                ctx.graph, ctx.codes, ctx.lengths,
+                ss_orientation=ss_orientation, device=dev)
+        ctx.graph = g
+        if n:
+            ctx.contigs = fasta.graph_contigs(g, min_length=2 * g.k)
+        log(f"ss edge split ({ss_orientation}): split {n} edges")
+    return Stage("ss_edge_split", run)
+
+
+def make_second_phase(ks, log, device=None):
+    """SecondPhaseSetup (projects/spades/second_phase_setup.cpp): the
+    preliminary RR contigs are fed into one more assembly at the last K,
+    then repeat resolution runs again. As in the JAX package, this
+    assembly takes the isolate SimplifyConfig and the default
+    min_kmer_count, whatever the mode's (ROADMAP.md, Queue 3); the
+    restricted sequences are those an extract_domains stage left."""
+    def run(ctx: PipelineContext):
+        if ctx.graph is None or not ctx.final_contigs:
+            return
+        dev = resolve_device(device, ctx.codes)
+        with device_scope("second_phase", dev):
+            ctx.graph = None  # released before the new one is built
+            res = assemble.assemble_single_k(
+                ctx.codes, ctx.lengths, ks[-1],
+                extra_sequences=[s for s, _ in ctx.final_contigs],
+                restricted_sequences=ctx.params.get("restricted_seqs"),
+                device=dev)
+        ctx.graph = res.graph
+        ctx.contigs = res.contigs
+        log(f"second phase: {res.stats}")
+    return Stage("second_phase_setup", run)
+
+
 def make_gap_closing(log, device=None):
     """GapClosing (projects/spades/gap_closer.cpp): ``device`` as
     ``close_gaps`` takes it: by default the card the context's reads are
@@ -353,10 +463,6 @@ def make_repeat_resolution(log, output_dir=None, device=None):
 
 
 def make_contig_output(output_dir: str, log, cfg=None):
-    if cfg is not None and cfg.circular_output:
-        # contigs.circular.fasta waits for models/plasmid.py
-        return _unported("contig_output", "item 11")
-
     def run(ctx: PipelineContext):
         fasta.write_contigs_fasta(
             os.path.join(output_dir, "before_rr.fasta"), ctx.contigs)
@@ -366,6 +472,8 @@ def make_contig_output(output_dir: str, log, cfg=None):
         fasta.write_contigs_fasta(
             os.path.join(output_dir, "scaffolds.fasta"),
             ctx.scaffolds or final)
+        if cfg is not None and cfg.circular_output and ctx.graph is not None:
+            _write_circular(ctx.graph, cfg, output_dir, log)
         if ctx.graph is not None:
             def named(contig_list, raw_paths):
                 # names must match the fasta headers the same list got
@@ -395,6 +503,24 @@ def make_contig_output(output_dir: str, log, cfg=None):
                 output_dir, "assembly_graph.fastg"), ctx.graph)
         log(f"wrote {len(final)} contigs to {output_dir}")
     return Stage("contig_output", run)
+
+
+def _write_circular(g, cfg, output_dir: str, log) -> None:
+    """contigs.circular.fasta, and for metaviral contigs.linears.fasta
+    (contig_output_stage.cpp:213-240)."""
+    circ = plasmid.circular_contigs(g)
+    plasmid.write_plasmid_fasta(
+        os.path.join(output_dir, "contigs.circular.fasta"), circ)
+    log(f"circular output: {sum(1 for _, _, c in circ if c)} "
+        f"circular of {len(circ)} candidates")
+    if cfg.plasmid_output_linear:
+        # metaviral (metaviral_mode.info output_linear true): linear
+        # dead-end-bounded candidates too (GetTipScaffolds)
+        linears = [(s, cv, False) for s, cv, c in circ
+                   if not c and len(s) >= cfg.plasmid_min_linear_length]
+        plasmid.write_plasmid_fasta(
+            os.path.join(output_dir, "contigs.linears.fasta"), linears)
+        log(f"linear viral candidates: {len(linears)}")
 
 
 def build_stage_list(args, ks, log, cfg=None, device=None):
@@ -433,7 +559,7 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
                 simplify_cfg=cfg.simplify, min_kmer_count=min_kc,
                 output_dir=args.output_dir, device=device))
     if getattr(args, "ss", None) and cfg.strand_specific:
-        stages.append(_unported("ss_edge_split", "item 11"))
+        stages.append(make_ss_edge_split(args.ss, log, device=device))
     if paired:
         stages.append(make_gap_closing(log, device=device))
     long_reads = (getattr(args, "pacbio", []) +
@@ -442,15 +568,16 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
     if long_reads:
         # the reference runs HybridLibrariesAligning twice
         # (pipeline.cpp:271-274)
-        stages.append(_unported("hybrid_aligning", "item 11"))
-        stages.append(_unported("hybrid_aligning_2", "item 11"))
+        stages.append(_unported("hybrid_aligning", "item 7"))
+        stages.append(_unported("hybrid_aligning_2", "item 7"))
     if cfg.careful or getattr(args, "careful", False):
         stages.append(make_mismatch_correction(log, device=device))
     if cfg.chromosome_removal:
-        stages.append(_unported("chromosome_removal", "item 11"))
+        stages.append(make_chromosome_removal(log, cfg,
+                                              output_dir=args.output_dir))
     if getattr(args, "series_analysis", None):
         # before RR (pipeline.cpp:205-206)
-        stages.append(_unported("series_analysis", "item 11"))
+        stages.append(_unported("series_analysis", "item 8"))
 
     def repeat_resolution(name):
         return dataclasses.replace(
@@ -463,13 +590,13 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
         if hmm_set:
             # ExtractDomains on the preliminary contigs
             # (pipeline.cpp:145-146)
-            stages.append(_unported("extract_domains", "item 11"))
+            stages.append(_unported("extract_domains", "item 8"))
         # meta: SecondPhaseSetup re-feeds the preliminary RR contigs into
         # a final iteration + RR, restricted edges protected
-        stages.append(_unported("second_phase_setup", "f"))
+        stages.append(make_second_phase(ks, log, device=device))
         stages.append(repeat_resolution("repeat_resolution_2"))
     stages.append(make_contig_output(args.output_dir, log, cfg))
     if hmm_set:
         # DomainGraphConstruction last (pipeline.cpp:285-286)
-        stages.append(_unported("domain_graph_construction", "item 11"))
+        stages.append(_unported("domain_graph_construction", "item 8"))
     return stages

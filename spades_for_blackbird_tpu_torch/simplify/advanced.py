@@ -1,5 +1,6 @@
-"""Advanced simplification: path bulges, relative-coverage components,
-complex tips, topology-based and hidden erroneous connections.
+"""Advanced simplification: path bulges, relative-coverage components
+and disconnection, complex tips, topology-based and hidden erroneous
+connections, and rna's mismatch tips and low-complexity clippers.
 
 PyTorch counterpart of the JAX package's ``simplify/advanced.py``
 (the reference's sequential "hard" cleaners):
@@ -9,6 +10,8 @@ PyTorch counterpart of the JAX package's ``simplify/advanced.py``
   ``MostCoveredSimpleAlternativePathChooser:64``)
 - relative-coverage component remover
   (modules/simplification/relative_coverage_remover.hpp:220-745)
+- relative-coverage edge disconnector (relative_coverage_remover.hpp:281
+  ``RelativeCovDisconnectionCondition``)
 - complex tip clipper (modules/simplification/complex_tip_clipper.hpp:19
   + dominated_set_finder.hpp:7)
 - the MDA topology block: topology-based, topology-and-reliability and
@@ -16,14 +19,14 @@ PyTorch counterpart of the JAX package's ``simplify/advanced.py``
   (single_cell_simplification.hpp, topological_edge_conditions.hpp)
 - hidden-EC removers (erroneous_connection_remover.hpp:414
   ``MetaHiddenECRemover``, :499 ``HiddenECRemover``)
+- rnaSPAdes' mismatch-tip condition (tip_clipper.hpp:105) and
+  low-complexity clippers (rna_simplification.hpp:10-18)
 
 These cleaners walk small bounded neighbourhoods of the compacted graph
 on the host over a mutable NumPy view (``HostGraph``), as the JAX package
 does; only the device boundary differs: the alive rows are pulled with
-``.cpu()`` and the edited columns pushed back as tensors. Not ported yet:
-the relative-coverage edge disconnector (meta's red block), the
-mismatch-tip mask and the low-complexity clippers (rna) and the max-flow
-EC remover.
+``.cpu()`` and the edited columns pushed back as tensors. Not ported:
+the max-flow EC remover, which no mode enables.
 """
 
 from __future__ import annotations
@@ -626,6 +629,72 @@ def remove_rcc_components(g: Graph, v_space: int, *,
 
 
 # ---------------------------------------------------------------------
+# Relative-coverage edge disconnector (meta, rnaviral)
+# ---------------------------------------------------------------------
+
+def _high_cov_component_length(hv: HostGraph, v: int, bound: float,
+                               length_limit: int,
+                               edge_limit: int = 1000) -> int:
+    """HighCoverageComponentFinder::CumulativeEdgeLength
+    (components/splitters.hpp:269): DFS over edges with cov >= bound."""
+    seen: set[int] = set()
+    total = 0
+    stack = list(hv.incident(v))
+    while stack:
+        e = stack.pop()
+        if total >= length_limit or len(seen) > edge_limit:
+            break
+        if e in seen or int(hv.conj[e]) in seen:
+            continue
+        if hv.cov[e] < bound:
+            continue
+        seen.add(e)
+        seen.add(int(hv.conj[e]))
+        total += hv.len_k(e)
+        stack.extend(hv.incident(int(hv.start_v[e])))
+        stack.extend(hv.incident(int(hv.end_v[e])))
+    return total
+
+
+def disconnect_relative_low(g: Graph, v_space: int, *,
+                            diff_mult: float = 20.0,
+                            edge_sum: int = 10000,
+                            unconditional_diff_mult: float = 0.0
+                            ) -> tuple[Graph, int, int]:
+    """RelativeCovDisconnectionCondition + DisconnectionAlgorithm
+    (relative_coverage_remover.hpp:281, parallel_processing.hpp:444):
+    detach (trim one (k+1)-mer off) edges whose start vertex has much
+    higher-covered edges on both sides, when the highly covered
+    neighbourhood is long enough to look like real sequence. Plain
+    average coverage (RelativeAvgCovHelper:167), as in the reference.
+    Returns (graph, v_space, n_disconnected)."""
+    hv = HostGraph(g, v_space)
+
+    def cond(e: int, mult: float, min_nbr: int) -> bool:
+        v = int(hv.start_v[e])
+        bound = float(hv.cov[e]) * mult
+        if not (max((hv.cov[x] for x in hv.in_edges(v)), default=0.0) > bound
+                and max((hv.cov[x] for x in hv.out_edges(v)), default=0.0)
+                > bound):
+            return False
+        return min_nbr <= 0 or _high_cov_component_length(
+            hv, v, bound, min_nbr) >= min_nbr
+
+    n = 0
+    for e in np.nonzero(hv.alive)[0]:
+        e = int(e)
+        if not hv.alive[e]:
+            continue
+        if (unconditional_diff_mult > 0.0
+                and cond(e, unconditional_diff_mult, 0)) \
+                or cond(e, diff_mult, edge_sum):
+            hv.disconnect_start(e, trim=1)
+            n += 1
+    gg, vs = hv.to_graph()
+    return gg, vs, n
+
+
+# ---------------------------------------------------------------------
 # Topology-based EC removers (the MDA topology block)
 # ---------------------------------------------------------------------
 
@@ -1027,3 +1096,105 @@ def remove_hidden_ec(g: Graph, v_space: int, *,
             n += 1
     gg, vs = hv.to_graph()
     return gg, vs, n
+
+
+# ---------------------------------------------------------------------
+# rna: mismatch tips and low-complexity clippers
+# ---------------------------------------------------------------------
+
+def mismatch_tip_mask(g: Graph, v_space: int, max_diff: float
+                      ) -> np.ndarray:
+    """MismatchTipCondition (tip_clipper.hpp:105-150): edge e (or its
+    conjugate) has a LONGER sibling out-edge from the same start vertex
+    whose bases agree with e everywhere past the shared k-mer except at
+    most ``max_diff`` positions (an absolute count when >= 1, else a
+    fraction of e's k-mer length): sequencing mismatches near read ends,
+    the condition rna mode conjoins into its first tip clause
+    (rna_mode.info tc condition "mmm 3 ..."). Returns an (E,) bool mask
+    on the host."""
+    hv = HostGraph(g, v_space)
+    flat = hv.flat_host()
+    starts, lens, k = hv.seq_start, hv.seq_len, hv.k
+
+    def seq(e):
+        return flat[starts[e]:starts[e] + lens[e]]
+
+    def inner(e: int) -> bool:
+        le = int(lens[e])
+        bound = max_diff if max_diff >= 1.0 else max_diff * hv.len_k(e)
+        bound = int(round(bound))
+        se = None
+        for alt in hv.out_edges(int(hv.start_v[e])):
+            if alt == e or lens[alt] <= le:
+                continue
+            if se is None:
+                se = seq(e)
+            if int(np.sum(se[k:le] != seq(alt)[k:le])) <= bound:
+                return True
+        return False
+
+    mask = np.zeros(len(hv.alive), bool)
+    for e in np.nonzero(hv.alive)[0]:
+        e = int(e)
+        if inner(e) or inner(int(hv.conj[e])):
+            mask[e] = True
+    return mask
+
+
+def _max_base_fraction(flat, start, lo, hi) -> float:
+    s = flat[start + lo:start + hi]
+    if len(s) == 0:
+        return 0.0
+    return float(np.bincount(s, minlength=4)[:4].max()) / len(s)
+
+
+def clip_low_complexity_tips(g: Graph, v_space: int,
+                             max_len: int = 200,
+                             max_frac: float = 0.8
+                             ) -> tuple[Graph, int, int]:
+    """LowComplexityTipClipper (rna_simplification.hpp:10): tips of
+    length <= max_len whose sequence (minus the shared junction k-mer)
+    is dominated by one base (ATCondition(0.8, check_tip=true)), the
+    poly-A/poly-T artifact clipper of rnaSPAdes. Returns (graph,
+    v_space, n)."""
+    hv = HostGraph(g, v_space)
+    flat = hv.flat_host()
+    n = 0
+    for e in np.nonzero(hv.alive)[0]:
+        e = int(e)
+        if hv.len_k(e) > max_len:
+            continue
+        lo, hi = 0, int(hv.seq_len[e])
+        if not hv.out_edges(int(hv.end_v[e])):
+            lo = hv.k
+        elif not hv.in_edges(int(hv.start_v[e])):
+            hi = hi - hv.k
+        else:
+            continue
+        if _max_base_fraction(flat, int(hv.seq_start[e]), lo, hi) \
+                > max_frac:
+            hv.kill(e)
+            n += 1
+    g2, vs = hv.to_graph()
+    return g2, vs, n
+
+
+def remove_low_complexity_short_edges(g: Graph, v_space: int,
+                                      max_frac: float = 0.8
+                                      ) -> tuple[Graph, int, int]:
+    """LowComplexityShortEdgeRemover (rna_simplification.hpp:18):
+    1-k-mer edges dominated by one base, tip or not. Returns (graph,
+    v_space, n)."""
+    hv = HostGraph(g, v_space)
+    flat = hv.flat_host()
+    n = 0
+    for e in np.nonzero(hv.alive)[0]:
+        e = int(e)
+        if hv.len_k(e) > 1:
+            continue
+        if _max_base_fraction(flat, int(hv.seq_start[e]), 0,
+                              int(hv.seq_len[e])) > max_frac:
+            hv.kill(e)
+            n += 1
+    g2, vs = hv.to_graph()
+    return g2, vs, n

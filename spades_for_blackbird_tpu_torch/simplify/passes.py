@@ -59,7 +59,8 @@ def _seg_max_excl_self(cov: torch.Tensor, seg: torch.Tensor,
 
 
 def clip_tips(g: Graph, v_space: int, length_bound: int,
-              coverage_bound: float, relative_coverage: float) -> Graph:
+              coverage_bound: float, relative_coverage: float,
+              require: torch.Tensor | None = None) -> Graph:
     """Remove short dead-end edges (TipCondition + RelativeCoverage
     TipCondition):
 
@@ -68,7 +69,9 @@ def clip_tips(g: Graph, v_space: int, length_bound: int,
     - length in k-mers <= length_bound; cov <= coverage_bound;
     - cov <= relative_coverage * (max competitor coverage + 1), where
       competitors are the OTHER out-edges of start and in-edges of end,
-      loops excluded.
+      loops excluded;
+    - and, where ``require`` (an (E,) bool mask) is given, that mask (the
+      rna mismatch-tip condition).
     """
     m, out_deg, in_deg = _vertex_tables(g, v_space)
     vss = torch.clamp(g.start_v, max=v_space - 1)
@@ -83,6 +86,8 @@ def clip_tips(g: Graph, v_space: int, length_bound: int,
     kill = m & dead_end & has_alt & \
         (g.seq_len - g.k <= length_bound) & (g.cov <= coverage_bound) & \
         (g.cov <= relative_coverage * (competitor + 1.0))
+    if require is not None:
+        kill = kill & require
     return _delete(g, kill)
 
 

@@ -12,17 +12,20 @@ with parameter semantics from configs/debruijn/simplification.info:
 - icb:     iterative coverage bound, ramped linearly over the cycle
 - bulge:   max_bulge_length = max(coeff * k, k + additive)
 
-Of the post-simplification passes the port runs those the isolate and
-single-cell (MDA) modes enable: relative-coverage components (rcc),
-complex tips, path bulges, the MDA topology block (tec, trec, isec,
-multiplicity counting) and the hidden-EC remover (her). A configuration
-that enables another one raises ``NotImplementedError``; ROADMAP.md
-queues those passes.
+The post-simplification passes run in the reference's order: rna's
+low-complexity clippers, relative-coverage components (rcc), the
+relative-coverage edge disconnector (red), complex tips, path bulges,
+superbubbles, the final tip and bulge passes, the MDA topology block
+(tec, trec, isec, multiplicity counting) and the hidden-EC remover (her).
+The max-flow EC remover (mfec), which no mode enables, is not ported: a
+configuration that enables it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from ..graph.graph import Graph, edge_mask
 from ..utils.logger import get_logger
@@ -30,6 +33,7 @@ from ..utils.timetrace import device_scope
 from ..utils.timetrace import scope as _scope
 from . import advanced, passes
 from .recondense import recondense
+from .superbubble import collapse_superbubbles
 
 _log = get_logger("Simplification")
 
@@ -38,14 +42,18 @@ _log = get_logger("Simplification")
 class SimplifyConfig:
     """Simplification parameters (isolate-mode defaults of the reference,
     configs/debruijn/simplification.info), as in the JAX package. The
-    switches of passes the port does not run yet stay, and raise
-    NotImplementedError when set; their tuning fields come with the
-    passes."""
+    switch of the max-flow EC remover stays, and raises
+    NotImplementedError when set; its tuning fields would come with the
+    pass."""
     read_length: int = 100
-    # tip clipper cycle clauses: (tc_lb, cb_absolute_or_None=auto, rctc)
+    # tip clipper cycle clauses: (tc_lb, cb_absolute_or_None=auto, rctc),
+    # or with a fourth value, rna's mismatch-tip bound (mmm)
     tip_clauses: tuple = ((1.5, 1.5, 2.0), (2.0, 1.5, None))
     # final tip clipper clauses
     final_tip_clauses: tuple = ((1.5, 3.0, 2.0), (4.0, None, None))
+    # rna low-complexity clippers (rna_simplification.hpp: AT edges
+    # early, AT tips in post-simplification)
+    low_complexity_enabled: bool = False
     # bulge remover (br)
     bulge_length_coeff: float = 3.0
     bulge_len_additive: int = 100   # max_additive_length_coefficient
@@ -74,6 +82,11 @@ class SimplifyConfig:
     rcc_vertex_limit: int = 30
     rcc_max_ec_len_additive: int = 30     # max_ec_length_coefficient
     rcc_max_coverage_coeff: float = 2.0   # <0 = unlimited
+    # relative-coverage edge disconnector (red block; meta, rnaviral)
+    red_enabled: bool = False
+    red_diff_mult: float = 20.0
+    red_edge_sum: int = 10000
+    red_unconditional_diff_mult: float = 0.0
     # complex tip clipper (complex_tc block; enabled by default upstream)
     complex_tc_enabled: bool = True
     complex_tc_max_edge_len: int = 100
@@ -101,42 +114,33 @@ class SimplifyConfig:
     her_uniqueness_length: int = 1500
     her_unreliability_coeff: float = 4.0  # x detected ec bound
     her_relative_threshold: float = 5.0
+    # superbubble collapse (rna; superbubble_finder.hpp:21)
+    superbubble_enabled: bool = False
+    superbubble_max_length: int = 1000
     # cycle (cycle_iter_count)
     rounds: int = 10
     # ier with use_rl_for_max_length_any_cov: isolated edges up to
     # read_length go regardless of coverage
     isolated_max_length: int | None = None
     isolated_max_coverage: float = 1e18
-    # passes not ported yet: setting any of these raises
-    low_complexity_enabled: bool = False
-    red_enabled: bool = False
-    superbubble_enabled: bool = False
+    # the max-flow EC remover (mfec block, simplification.info:228-234;
+    # disabled in every reference mode) is not ported: setting it raises
     mfec_enabled: bool = False
 
 
-# SimplifyConfig switches whose passes are not ported yet. her_meta runs
-# in remove_hidden_ec, but only meta sets it, and meta needs red first.
+# SimplifyConfig switches whose passes are not ported
 _UNPORTED = (
-    ("low_complexity_enabled", "rna low-complexity clippers"),
-    ("red_enabled", "relative-coverage edge disconnector (red)"),
-    ("superbubble_enabled", "superbubble collapse"),
     ("mfec_enabled", "max-flow EC remover (mfec)"),
 )
 
 
 def check_ported(cfg: SimplifyConfig) -> None:
-    """Raise for configuration branches the port does not run yet."""
+    """Raise for configuration branches the port does not run."""
     for name, what in _UNPORTED:
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"SimplifyConfig.{name}: the {what} is not ported to "
-                f"PyTorch yet (ROADMAP.md, Queue 1, 'Still to port')")
-    for clause in tuple(cfg.tip_clauses) + tuple(cfg.final_tip_clauses):
-        if len(clause) > 3:
-            raise NotImplementedError(
-                "tip clause with a mismatch-tip condition "
-                "(advanced.mismatch_tip_mask) is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1, 'Still to port')")
+                f"PyTorch (ROADMAP.md, Queue 1, item 8)")
 
 
 def _tip_length(k: int, read_length: int, lb: float) -> int:
@@ -147,10 +151,17 @@ def _tip_length(k: int, read_length: int, lb: float) -> int:
 
 def _clip_tips_clauses(g: Graph, v_space: int, clauses, k: int,
                        read_length: int, auto_cb: float) -> Graph:
-    for lb, cb, rctc in clauses:
+    for clause in clauses:
+        # (lb, cb, rctc), or with rna's mismatch-tip conjunct (mmm)
+        lb, cb, rctc = clause[:3]
+        require = None
+        if len(clause) > 3:
+            require = torch.from_numpy(advanced.mismatch_tip_mask(
+                g, v_space, clause[3])).to(g.device)
         g = passes.clip_tips(g, v_space, _tip_length(k, read_length, lb),
                              auto_cb if cb is None else cb,
-                             1e18 if rctc is None else rctc)
+                             1e18 if rctc is None else rctc,
+                             require=require)
     return g
 
 
@@ -198,6 +209,15 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
 
     # post-simplification (PostSimplification order,
     # stages/simplification.cpp:230-330)
+    if cfg.low_complexity_enabled:
+        # rna "AT edges" + "AT Tips" (simplification.cpp:113,302)
+        with device_scope("low_complexity", g.device):
+            g, v_space, n1 = advanced.remove_low_complexity_short_edges(
+                g, v_space)
+            g, v_space, n2 = advanced.clip_low_complexity_tips(g, v_space)
+            if n1 or n2:
+                g = recondense(g, v_space)
+
     if cfg.rcc_enabled:
         # edge-level relative EC pre-pass, then the component remover
         # (relative_coverage_remover.hpp:692)
@@ -217,6 +237,15 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
                 longest_connecting_path_bound=k + cfg.rcc_max_ec_len_additive,
                 max_coverage=max_cov,
                 vertex_count_limit=cfg.rcc_vertex_limit)
+            if n:
+                g = recondense(g, v_space)
+
+    if cfg.red_enabled:
+        with device_scope("red", g.device):
+            g, v_space, n = advanced.disconnect_relative_low(
+                g, v_space, diff_mult=cfg.red_diff_mult,
+                edge_sum=cfg.red_edge_sum,
+                unconditional_diff_mult=cfg.red_unconditional_diff_mult)
             if n:
                 g = recondense(g, v_space)
 
@@ -242,7 +271,14 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
         if n:
             g = recondense(g, v_space)
 
-    # final tip clipper + bulge pass (final_br)
+    if cfg.superbubble_enabled:
+        with device_scope("superbubble", g.device):
+            g, nb = collapse_superbubbles(
+                g, max_length=cfg.superbubble_max_length)
+            if nb:
+                g = recondense(g, v_space)
+
+    # final tip clipper + bulge pass (final_br; rnaviral disables it)
     g = _clip_tips_clauses(g, v_space, cfg.final_tip_clauses, k, rl, auto_cb)
     g = recondense(g, v_space)
     if cfg.final_br_enabled:

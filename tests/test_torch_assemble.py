@@ -88,8 +88,9 @@ def test_contigs_fasta_and_min_length(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    {"cfg": runner.SimplifyConfig(red_enabled=True)},
-    {"cfg": runner.SimplifyConfig(superbubble_enabled=True)},
+    {"cfg": runner.SimplifyConfig(mfec_enabled=True)},
+    {"cfg": runner.SimplifyConfig(mfec_enabled=True, red_enabled=True,
+                                  superbubble_enabled=True)},
 ])
 def test_unported_options_raise(option):
     codes, lengths = dna.encode_reads(["ACGT" * 15])

@@ -243,20 +243,23 @@ def test_paired_input_runs_as_far_as_the_port_goes(tmp_path,
 
 
 @pytest.mark.parametrize("extra,needle", [
-    (["-1", "READS", "-2", "READS", "--meta"], "red_diff_mult"),
-    (["--only-assembler", "--metaplasmid"], "red_diff_mult"),
-    (["--only-assembler", "--plasmid"], "chromosome_removal"),
-    (["--only-assembler", "--rna"], "not ported"),
-    (["--only-assembler", "--rnaviral"], "red_diff_mult"),
+    (["-1", "READS", "-2", "READS", "--meta", "--nanopore", "READS"],
+     "hybrid_aligning"),
+    (["--only-assembler", "--sanger", "READS"], "hybrid_aligning"),
+    (["--only-assembler", "--bio", "--custom-hmms", "FILE"],
+     "extract_domains"),
+    (["--only-assembler", "--corona", "--custom-hmms", "FILE"],
+     "domain_graph_construction"),
+    (["--only-assembler", "--series-analysis", "FILE"], "series_analysis"),
     (["--only-assembler", "--nanopore", "READS"], "hybrid_aligning"),
     (["--only-assembler", "--pacbio", "READS"], "hybrid_aligning"),
-    (["--moleculo"], "mismatch-tip"),
+    (["--plasmid", "--pacbio", "READS"], "hybrid_aligning_2"),
 ])
 def test_unported_requests_exit_2_before_any_work(small, tmp_path, capsys,
                                                   extra, needle,
                                                   logger_untouched):
     out = tmp_path / "out"
-    extra = [small if x == "READS" else x for x in extra]
+    extra = [small if x in ("READS", "FILE") else x for x in extra]
     assert cli.main(["-s", small, "-o", str(out)] + extra + CPU) == 2
     assert needle in capsys.readouterr().err
     assert not (out / "saves").exists()
@@ -266,19 +269,17 @@ def test_unported_requests_exit_2_before_any_work(small, tmp_path, capsys,
 def test_mode_wrappers_and_mode_table(small, tmp_path, logger_untouched):
     out = str(tmp_path / "out")
     assert cli.main_meta(["-s", small, "-o", out, "--rna"] + CPU) == 2
-    assert cli.main_meta(["-s", small, "-o", out] + CPU) == 2
-    assert cli.main_plasmid(["-s", small, "-o", out] + CPU) == 2
     assert cli.main(["-s", small, "-o", out, "--bio"] + CPU) == 2
-    # isolate and the overlays that tune only ported passes build; the
-    # others name the field they would have dropped
-    works = {"isolate", "plasmid", "rna", "bio", "large_genome", "sc",
-             "moleculo"}
+    # the meta and plasmid wrappers run their modes to the end
+    run = ["-s", small, "-k", "21", "--only-assembler", "--checkpoints",
+           "none"] + CPU
+    assert cli.main_meta(run + ["-o", str(tmp_path / "meta")]) == 0
+    assert "mode: meta" in (tmp_path / "meta" / "spades.log").read_text()
+    assert cli.main_plasmid(run + ["-o", str(tmp_path / "plasmid")]) == 0
+    assert (tmp_path / "plasmid" / "contigs.circular.fasta").exists()
+    # every overlay builds
     for mode in MODES:
-        if mode in works:
-            assert config_for_mode(mode).mode == mode
-        else:
-            with pytest.raises(NotImplementedError, match="SimplifyConfig"):
-                config_for_mode(mode)
+        assert config_for_mode(mode).mode == mode
     with pytest.raises(ValueError):
         config_for_mode("nonsense")
     assert config_for_mode("isolate", careful=True).careful

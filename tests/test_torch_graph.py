@@ -246,8 +246,10 @@ def test_simplification_pass_matches_jax(state, name):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="red"):
-        runner.check_ported(runner.SimplifyConfig(red_enabled=True))
-    with pytest.raises(NotImplementedError, match="mismatch"):
-        runner.check_ported(runner.SimplifyConfig(
-            tip_clauses=((1.5, 1.5, 2.0, 3),)))
+    with pytest.raises(NotImplementedError, match="mfec"):
+        runner.check_ported(runner.SimplifyConfig(mfec_enabled=True))
+    # red, the mismatch-tip clause, the low-complexity clippers and
+    # superbubbles run
+    runner.check_ported(runner.SimplifyConfig(
+        red_enabled=True, low_complexity_enabled=True,
+        superbubble_enabled=True, tip_clauses=((1.5, 1.5, 2.0, 3),)))
