@@ -9,8 +9,10 @@ the CUDA toolkit):
 Phases, each of which raises on failure (the script then exits 1 and
 prints no result):
 
-1. the card's name and power limit (nvidia-smi); build of the CUDA
-   k-mer extraction kernel from ``spades_for_blackbird_tpu_torch/csrc``;
+1. the card's name and power limit (nvidia-smi); build of the port's
+   three CUDA kernels from ``spades_for_blackbird_tpu_torch/csrc`` (the
+   k-mer extraction, the banded edit distance and the Viterbi), one
+   ``nvcc`` a source, all started together;
 2. kernel vs its plain PyTorch version on the card: simulated reads
    with N bases and short reads, L = 100 and 150, k+1 in
    {22, 34, 56, 78, 128} at nine fixed chunk shapes, the three shapes
@@ -31,7 +33,13 @@ prints no result):
    strand byte; so it is at the read mapper's (L = 100, k+1 = 56, one
    mate of the 4.6 Mb simulation: 920,000 reads) and at the edge index's
    (the flat sequence of a 4.6 Mb graph cut into rows of 4096 bases that
-   overlap by k bases, the last one ragged);
+   overlap by k bases, the last one ragged); then the two hand kernels
+   with no TPU counterpart against their plain versions: ``banded_ed``
+   at the hybrid stages' shapes (B = 1-8, L up to 2,000, band 48) and
+   ragged ones (lengths 0 and 1, a length difference past the band),
+   bit-equal; ``viterbi`` at profile lengths 120, 300 and 1,100 (two
+   nodes a thread), bit-equal at every position within a row's length;
+   both bare launches timed beside their bound and the plain versions;
 3. ``assemble_single_k`` at k=21 on a 20 kb simulated genome on the card
    and on the CPU: identical canonical contigs, coverages within
    rtol 1e-4 (float32 sums run in another order on the card); the
@@ -39,8 +47,9 @@ prints no result):
    (``_windows_from_sequences``) of that assembly at k+1 = 34 and 56,
    aligned and as a misaligned view; then the same reads as a FASTQ file
    through the command line twice, ``--device cuda`` and ``--device
-   cpu``, at -k 21,33 (21,33,55 until phases 12-14 came; every command
-   line of this phase runs that ladder): identical contig sequences,
+   cpu``, at -k 21,33 (21,33,55 until phases 12-14 came; the later
+   command lines of this phase run at -k 21 since phase 15 came):
+   identical contig sequences,
    coverages within
    rtol 1e-4, identical GFA segments and links; the error corrector on
    the same reads with their qualities (``correct_reads``) on the card
@@ -59,13 +68,20 @@ prints no result):
    coverage), restricted by the 43-base windows centred on its SNPs:
    identical contigs, every window kept; then the modes on FR pairs of a
    26 kb community (a 15 kb and an 8 kb genome at 40x, a 3 kb circle at
-   60x) through the command line on both: ``--meta -k 21,33``,
+   60x) through the command line on both: ``--meta -k 21`` (21,33
+   until phase 15 came),
    ``--plasmid``, ``--metaplasmid``, ``--metaviral``, ``--rnaviral``,
    ``--rna --ss fr`` and ``--moleculo`` at ``-k 21``, all
    ``--only-assembler``: identical contigs, scaffolds, ``.paths``,
    ``final.lib_data``, GFA segments, links and P-lines, and identical
    ``contigs.circular.fasta``, ``contigs.linears.fasta`` and
    ``components_*.fasta`` (coverages in the headers within rtol 1e-4);
+   and the hybrid, HMM and series command lines at ``-k 21
+   --only-assembler`` on FR pairs of a 12 kb genome with two planted
+   domains: ``--pacbio`` and ``--sanger`` (a 600 bp hole in the pairs,
+   ten noisy long reads across it), ``--bio --custom-hmms`` and
+   ``--corona --custom-hmms``, ``--series-analysis`` (a two-sample
+   profile): identical FASTA, paths, GFA, HMM and series files;
 4. the full-size run: ``assemble_single_k`` at k=55 on a simulated
    E. coli-sized genome (4.6 Mb, seed 7, 40x, 100 bp paired reads,
    error rate 0.002, planted repeats), graded against the truth with
@@ -122,10 +138,12 @@ prints no result):
    200 bases from their ends and 500 apart, mirrored on the conjugate
    edges), using phase 4's reads: every planted base must be fixed; the
    other bases it changed are counted (expected 0), timed by scope, with
-   launches and peak memory; (b) phase 8's command with ``--careful``:
+   launches and peak memory; (b) phase 8's command with ``--careful``
+   at ``-k 55`` (the whole ladder until phase 15 came):
    return 0, the quality bar on contigs and scaffolds, the kernel
    launched at least twice inside ``correct_mismatches``;
-10. ``--sc`` at full size on uneven coverage: the 4.6 Mb genome, coverage
+10. ``--sc`` on uneven coverage: the first half of the 4.6 Mb genome (the
+   whole until phase 15 came), coverage
    constant over 5 kb blocks, ``clip(40 * exp(0.8 z), 8, 200)`` a block,
    phase 8's reads otherwise, as two FASTQ files with qualities;
    ``cli.main(["-1", f1, "-2", f2, "-o", out, "--sc", "--checkpoints",
@@ -146,8 +164,9 @@ prints no result):
    walls; (b) phase 8's reads with ``--only-assembler --assembly-graph``
    on phase 8's GFA: return 0 and the quality bar on contigs and
    scaffolds;
-12. the metagenome at full size: four genomes of 2.0, 1.5, 1.0 and 0.5 Mb
-   (seeds 21-24, GC 0.40, 0.50, 0.60, 0.45, phase 4's planted repeats) at
+12. the metagenome, cut to half its size since phase 15 came (META_SCALE):
+   four genomes of 1.0, 0.75, 0.5 and 0.25 Mb (2.0, 1.5, 1.0 and 0.5 Mb
+   before; seeds 21-24, GC 0.40, 0.50, 0.60, 0.45, phase 4's planted repeats) at
    80, 40, 20 and 8x, a 20 kb window of the first copied into the second
    with 1% substitutions, a 12 kb and a 60 kb circular plasmid at 10 and 3
    copies of the first genome and a 45 kb circular phage at 150x, as FR
@@ -163,7 +182,8 @@ prints no result):
    >= 90% of its 21-mers by one record of ``components_*.fasta`` or
    ``contigs.circular.fasta``; (c) writes ``contigs.linears.fasta`` and
    lists the phage as circular;
-13. ``-1/-2 --plasmid`` on phase 8's reads plus a 12 kb and a 60 kb
+13. ``-1/-2 --plasmid -k 55`` (the whole ladder until phase 15 came) on
+   phase 8's reads plus a 12 kb and a 60 kb
    circular plasmid at 10 and 3 copies: return 0, each plasmid held at
    >= 90% by one record of ``contigs.fasta`` or
    ``contigs.circular.fasta``;
@@ -180,8 +200,40 @@ prints no result):
    apart, 80/15/5 at 2,000x): return 0, the major haplotype at genome
    fraction >= 0.95.
 
-Phases 9-14 run with the plain extraction refused on the card. Each
-phase's wall is printed as ``[timing]``.
+15. hybrid long reads, the HMM modes and the series analysis at full
+   size, on phase 8's genome with 8 clusters of 3-5 reverse-translated
+   domains (12 domains of 120-300 aa, 1-5 kb apart) planted, and its FR
+   pairs at 40x with qualities: (a) ``-1/-2 --nanopore`` with every
+   pair that has a mate in one of 24 holes of 400-1,000 bases dropped
+   and long reads at 5x (2-20 kb, 10% errors split evenly between
+   substitutions, insertions and deletions): return 0, genome fraction
+   >= 0.97 of the genome outside the holes, no misassembly in a record
+   that does not reach a hole; the holes one record spans (both
+   100-mers 50 bases outside the hole) and the joins of each hybrid
+   stage printed, with no floor at this size (random 15-mers of the
+   long reads break the JAX package's seed chains inside the holes,
+   ROADMAP Queue 3, item 14); then the same on the 1/20 cut of this
+   data (230 kb, no clusters): a quarter of the holes spanned at
+   least, ``banded_ed`` launched; (b)
+   ``-1/-2 --bio --custom-hmms`` with the 12 profiles
+   (``hmm_from_consensus``, written with ``write_hmm_file``): return 0,
+   every cluster in ``gene_clusters.fasta`` with its domains in order;
+   then the Viterbi kernel on the run's own rows (six frames of every
+   contig) held against its plain version on each row cut to its first
+   4,000 positions for the shortest and the longest profile, and timed
+   alone on the full rows;
+   (c) three samples of phase 12's four genomes at their coverages
+   rotated a step a sample: their profile counted on the card and saved
+   in the JAX package's ``.npz``, then ``-1/-2 --only-assembler -k 55
+   --series-analysis`` on the first: every genome's edges of 1 kb or
+   more at median sample ratios within 20% of the planted ones. Wall,
+   peak memory and each kernel's launches (by stage) are printed for
+   every run.
+
+Phases 9-15 run with the plain versions of the kernels refused on the
+card. Each phase's wall is printed as ``[timing]``. ``--only PHASES``
+runs some of the phases that need no other (for a short check) and
+prints no result.
 
 Without a CUDA card, or outside a checkout of the repository, it exits
 2 before printing any result. The last two lines of standard output are
@@ -195,12 +247,14 @@ import ast
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -230,6 +284,8 @@ RR_SCOPES = ("gc_build_index", "gc_map_reads", "rr_build_index",
              "rr_scaffold")
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
 LADDER_GENOME = 500_000  # phase 6: the checkpointed ladder's cut size
+META_SCALE = 0.5        # phases 12 and 15 (c): the community's genomes cut
+SC_GENOME = FULL_GENOME // 2  # phase 10: the genome's first half
 HAMMER_SCOPES = ("hammer_count", "hammer_cluster", "hammer_subcluster",
                  "hammer_expand", "hammer_vote")
 FULL_COVERAGE = 40.0
@@ -240,6 +296,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # two operations an FMA), so that rate bounds them from above.
 INT_OPS_PER_S = 67e12 / 2
 COV_RTOL = 1e-4
+# phase 3: the command lines' CPU runs, child processes beside the card's
+CPU_RUN_WIDTH = 3       # at once
+CPU_RUN_THREADS = 2     # each
+CPU_RUN_TIMEOUT = 900
 CAREFUL_ERRORS = 1000  # phase 9: bases planted in the k=55 graph
 SC_BLOCK = 5000        # phase 10: bases of constant coverage
 SC_FRACTION = 0.95     # phase 10: genome fraction bar of --sc contigs
@@ -324,18 +384,25 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build() -> dict:
-    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
-    kernel = kmer_cuda.extract_sort_keys
+    """Build every kernel of the port from the checkout's sources: one
+    ``nvcc`` a source, all started together."""
+    from spades_for_blackbird_tpu_torch.ops import cuda_build
+    kernels = all_kernels()
     t0 = time.perf_counter()
-    path = kernel.build()
+    cuda_build.build_all(k.library for k in kernels.values())
     seconds = time.perf_counter() - t0
-    log(f"[build] {path} in {seconds:.2f} s (nvcc {kernel.build_seconds:.2f}"
-        f" s)")
-    usage = [ln.strip() for ln in kernel.ptxas_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    for ln in usage or ["cached build"]:
-        log(f"[build] ptxas: {ln}")
-    return {"build_s": seconds, "ptxas": usage}
+    out = {"build_s": seconds}
+    for name, kernel in kernels.items():
+        lib = kernel.library
+        usage = [ln.strip() for ln in lib.ptxas_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: {lib.library_path()} (nvcc "
+            f"{lib.build_seconds:.2f} s)")
+        for ln in usage or ["cached build"]:
+            log(f"[build] {name} ptxas: {ln}")
+        out[name] = {"nvcc_s": lib.build_seconds, "ptxas": usage}
+    log(f"[build] all kernels in {seconds:.2f} s")
+    return out
 
 
 def sampled_reads(rng, n_reads: int, read_len: int, coverage: float = 40.0,
@@ -630,11 +697,13 @@ def phase_gpu_vs_cpu(device) -> dict:
         device, [s for s, _ in gpu.contigs], codes.shape[1])
     hammer = hammer_gpu_vs_cpu(device, codes, lengths, quals)
     restricted = restricted_gpu_vs_cpu(device, genome, codes, lengths)
-    ladder = cli_gpu_vs_cpu(codes, lengths, quals)
+    ladder = cli_gpu_vs_cpu(device, codes, lengths, quals)
     modes = modes_gpu_vs_cpu(device)
+    hybrid = hybrid_modes_gpu_vs_cpu(device)
     return {"contigs": len(a), "gpu_s": t_gpu, "cpu_s": t_cpu,
             "contig_windows": windows, "hammer": hammer,
-            "restricted": restricted, "cli": ladder, "modes": modes}
+            "restricted": restricted, "cli": ladder, "modes": modes,
+            "hybrid_modes": hybrid}
 
 
 def plant_snps(genome: str, lo: int, n: int, spacing: int):
@@ -728,11 +797,10 @@ def corrected_reads_file(out: str) -> bytes:
         return f.read()
 
 
-def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
+def cli_gpu_vs_cpu(device, codes, lengths, quals) -> dict:
     """The command line on the card and on the CPU: the ladder alone,
     the default command (correction, then the ladder) and IonHammer's
     correction alone."""
-    from spades_for_blackbird_tpu_torch import cli
     from spades_for_blackbird_tpu_torch.io import fastq
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     record = {}
@@ -748,31 +816,27 @@ def cli_gpu_vs_cpu(codes, lengths, quals) -> dict:
         write_fastq(mates[1], codes[half:], quals[half:])
         pair = ["-1", mates[0], "-2", mates[1]]
         # the GFA-input run reads the graph the paired run wrote on the card
-        own_gfa = os.path.join(tmp, "paired", "cuda",
+        own_gfa = os.path.join(tmp, "paired", str(device),
                                "assembly_graph_with_scaffolds.gfa")
         runs = (("ladder", ["-s", plain, "-k", "21,33",
                             "--only-assembler"]),
-                ("default", ["-s", with_quals, "-k", "21,33"]),
+                ("default", ["-s", with_quals, "-k", "21"]),
                 ("ion", ["-s", with_quals, "--iontorrent",
                          "--only-error-correction"]),
-                ("paired", pair + ["-k", "21,33"]),
-                ("careful", pair + ["-k", "21,33", "--only-assembler",
+                ("paired", pair + ["-k", "21"]),
+                ("careful", pair + ["-k", "21", "--only-assembler",
                                     "--careful"]),
-                ("sc", pair + ["-k", "21,33", "--only-assembler",
-                               "--sc"]),
+                ("sc", pair + ["-k", "21", "--only-assembler", "--sc"]),
                 ("gfa_input", pair + ["--only-assembler",
                                       "--assembly-graph", own_gfa]))
-        for name, extra in runs:
-            walls = {}
-            for dev in ("cuda", "cpu"):
-                t0 = time.perf_counter()
-                rc = cli.main(["-o", os.path.join(tmp, name, dev),
-                               "--device", dev] + extra)
-                walls[dev] = time.perf_counter() - t0
-                if rc != 0:
-                    raise AssertionError(f"cli.main {name} --device {dev} "
-                                         f"returned {rc}")
-            card, cpu = (os.path.join(tmp, name, d) for d in ("cuda", "cpu"))
+        with CardAndCpu(device, tmp) as both:
+            for name, extra in runs:
+                if name != "gfa_input":  # it reads the paired run's GFA
+                    both.submit(name, extra)
+            compared = [(name, extra) + both.run(name, extra)
+                        for name, extra in runs]
+        for name, extra, walls, (card, cpu) in compared:
+            walls["cuda"] = walls[str(device)]
             if name == "ion":
                 if corrected_reads_file(card) != corrected_reads_file(cpu):
                     raise AssertionError("--iontorrent corrected reads "
@@ -1110,27 +1174,33 @@ def phase_ladder(device) -> dict:
 
 @contextlib.contextmanager
 def plain_extraction_refused():
-    """While open, the plain extraction functions raise when handed a
-    tensor on the card: the main path must take the kernel there."""
-    from spades_for_blackbird_tpu_torch.ops import kmer
-    names = ("extract_kmers", "extract_canonical_kmers", "extract_sort_keys",
-             "extract_canonical_keys")
-    saved = {name: getattr(kmer, name) for name in names}
+    """While open, the plain versions of the kernels (the k-mer
+    extraction functions, the banded edit distance and the Viterbi)
+    raise when handed a tensor on the card: the main path must take the
+    kernels there."""
+    from spades_for_blackbird_tpu_torch.ops import align, hmm, kmer
+    guards = [(kmer, name) for name in (
+        "extract_kmers", "extract_canonical_kmers", "extract_sort_keys",
+        "extract_canonical_keys")]
+    guards += [(align, "banded_edit_distance_plain"),
+               (hmm, "viterbi_ends_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in guards]
 
     def guarded(name, fn):
-        def call(codes, *args, **kwargs):
-            if codes.is_cuda:
-                raise AssertionError(f"plain ops/kmer.py::{name} was called "
-                                     f"with a tensor on the card")
-            return fn(codes, *args, **kwargs)
+        def call(first, *args, **kwargs):
+            rows = args[7] if name == "viterbi_ends_plain" else first
+            if rows.is_cuda:
+                raise AssertionError(f"plain {name} was called with a "
+                                     f"tensor on the card")
+            return fn(first, *args, **kwargs)
         return call
-    for name, fn in saved.items():
-        setattr(kmer, name, guarded(name, fn))
+    for mod, name, fn in saved:
+        setattr(mod, name, guarded(name, fn))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(kmer, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def phase_hammer(device, genome, codes, lengths, quals) -> dict:
@@ -1518,8 +1588,9 @@ def phase_careful(device, genome, graph, codes, lengths, mates, tmp) -> dict:
 
         # (b) the paired default command with --careful
         out = os.path.join(tmp, "careful")
-        argv = ["-1", mates[0], "-2", mates[1], "--careful",
-                "--checkpoints", "none", "--trace-time", "-o", out]
+        argv = ["-1", mates[0], "-2", mates[1], "--careful", "-k",
+                str(FULL_K), "--checkpoints", "none", "--trace-time", "-o",
+                out]
         cli_wall, cli_launches, inside, cli_peak = run_cli(
             device, argv, kernel,
             [(mismatch_correction, "correct_mismatches")])
@@ -1891,7 +1962,6 @@ def fasta_records(path: str) -> list[tuple[str, str]]:
 def same_records(a, b, what: str) -> None:
     """Two FASTA files' records: the same names but for the coverage
     field (rtol COV_RTOL) and the same sequences."""
-    import re
     if len(a) != len(b):
         raise AssertionError(f"{what}: {len(a)} records vs {len(b)}")
     for (na, sa), (nb, sb) in zip(a, b):
@@ -1907,40 +1977,13 @@ def same_records(a, b, what: str) -> None:
             raise AssertionError(f"{what}: coverage of {na} vs {nb}")
 
 
-@contextlib.contextmanager
-def launches_by_stage(kernel):
-    """While open, every stage list the command line builds counts the
-    kernel's launches inside each stage: yields {stage name: launches}."""
-    import dataclasses as dc
-    from spades_for_blackbird_tpu_torch.pipeline import spades_stages
-    counts: dict[str, int] = {}
-    build = spades_stages.build_stage_list
-
-    def counted(stage):
-        def fn(ctx):
-            before = kernel.launches
-            try:
-                return stage.fn(ctx)
-            finally:
-                counts[stage.name] = (counts.get(stage.name, 0)
-                                      + kernel.launches - before)
-        return dc.replace(stage, fn=fn)
-
-    def wrapped(*args, **kwargs):
-        return [counted(s) for s in build(*args, **kwargs)]
-    spades_stages.build_stage_list = wrapped
-    try:
-        yield counts
-    finally:
-        spades_stages.build_stage_list = build
-
-
 def mode_run(device, argv, kernel):
-    """``run_cli`` with the launches counted by stage too: (wall s,
+    """``counted_cli`` read for the k-mer kernel (``kernel``): (wall s,
     launches, launches by stage, peak device bytes)."""
-    with launches_by_stage(kernel) as by_stage:
-        wall, launches, _, peak = run_cli(device, argv, kernel)
-    return wall, launches, dict(by_stage), peak
+    wall, launches, by_stage, peak = counted_cli(device, argv)
+    name = next(n for n, k in all_kernels().items() if k is kernel)
+    return wall, launches[name], {stage: n[name] for stage, n in
+                                  by_stage.items()}, peak
 
 
 def log_lines(out: str, needles) -> list[str]:
@@ -1963,7 +2006,7 @@ def community_20kb(tmp, rng):
     return write_mates(tmp, "community", parts, rng)[0]
 
 
-MODE_RUNS = (("meta", ["--meta", "-k", "21,33"]),
+MODE_RUNS = (("meta", ["--meta", "-k", "21"]),
              ("plasmid", ["--plasmid", "-k", "21"]),
              ("metaplasmid", ["--metaplasmid", "-k", "21"]),
              ("metaviral", ["--metaviral", "-k", "21"]),
@@ -1972,55 +2015,128 @@ MODE_RUNS = (("meta", ["--meta", "-k", "21,33"]),
              ("moleculo", ["--moleculo", "-k", "21"]))
 
 
+# what card and CPU runs of a command line must write alike: FASTA
+# (coverage in the headers within rtol COV_RTOL), and exactly these
+SAME_FILES = (".paths", ".lib_data", "bgc_statistics.txt",
+              "domain_graph.dot")
+
+
+def compare_outputs(card: str, cpu: str, name: str):
+    """The files of two output directories of one command line, card and
+    CPU: the same FASTA, ``.paths``, ``.lib_data`` and HMM files
+    (``temp_anti/`` included), and the same GFA segments, links and
+    P-lines. Returns (file names, segments, P-lines)."""
+    def listed(d):
+        return sorted(os.path.relpath(os.path.join(r, n), d)
+                      for r, _, ns in os.walk(d) for n in ns
+                      if n.endswith((".fasta",) + SAME_FILES))
+    files = listed(cpu)
+    if files != listed(card):
+        raise AssertionError(f"{name}: the card and the CPU wrote other "
+                             f"files")
+    for fname in files:
+        if fname.endswith(".fasta"):
+            same_records(fasta_records(os.path.join(card, fname)),
+                         fasta_records(os.path.join(cpu, fname)),
+                         f"{name} {fname}")
+        else:
+            texts = [open(os.path.join(d, fname)).read()
+                     for d in (card, cpu)]
+            if texts[0] != texts[1]:
+                raise AssertionError(f"{name} {fname} differs")
+    (sa, la, pa), (sb, lb, pb) = (gfa_records(os.path.join(
+        d, "assembly_graph_with_scaffolds.gfa")) for d in (card, cpu))
+    if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb \
+            or pa != pb or not np.allclose(
+                [x[2] for x in sa], [x[2] for x in sb],
+                rtol=COV_RTOL, atol=1e-6):
+        raise AssertionError(f"{name}: GFA segments, links or paths "
+                             f"differ between card and CPU")
+    return files, sa, pa
+
+
+def cpu_cli(argv, out: str):
+    """The command line on the CPU in a child process (the package's
+    ``__main__``, CPU_RUN_THREADS threads, its log in ``out.log``; an
+    argument ``{dev}`` names the device): (return code, wall s)."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_RUN_THREADS))
+    t0 = time.perf_counter()
+    with open(out + ".log", "w") as f:
+        rc = subprocess.run(
+            [sys.executable, "-m", PACKAGE]
+            + [a.format(dev="cpu") for a in argv]
+            + ["-o", out, "--device", "cpu"], cwd=REPO, env=env, stdout=f,
+            stderr=subprocess.STDOUT, timeout=CPU_RUN_TIMEOUT).returncode
+    return rc, time.perf_counter() - t0
+
+
+class CardAndCpu:
+    """Command lines run on the card in this process and on the CPU in
+    child processes, CPU_RUN_WIDTH at a time from when they are
+    submitted, so the CPU's runs overlap the card's and each other. Use
+    as a context manager: leaving it waits for every child it started
+    and starts no queued one."""
+
+    def __init__(self, device, root: str):
+        self.device, self.root = device, root
+        self.pool = ThreadPoolExecutor(max_workers=CPU_RUN_WIDTH)
+        self.cpu = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def submit(self, name: str, argv) -> None:
+        """Start (or queue) ``name``'s CPU run."""
+        self.cpu[name] = self.pool.submit(
+            cpu_cli, argv, os.path.join(self.root, name, "cpu"))
+
+    def run(self, name: str, argv):
+        """``cli.main(argv)`` on the card into ``root/name/<device>``,
+        then the CPU's run of it (submitted now unless it was): the walls
+        and the two output directories; raises unless both return 0."""
+        from spades_for_blackbird_tpu_torch import cli
+        if name not in self.cpu:
+            self.submit(name, argv)
+        card = os.path.join(self.root, name, str(self.device))
+        t0 = time.perf_counter()
+        rc = cli.main([a.format(dev=str(self.device)) for a in argv]
+                      + ["-o", card, "--device", str(self.device)])
+        card_s = time.perf_counter() - t0
+        cpu_rc, cpu_s = self.cpu[name].result()
+        cpu = os.path.join(self.root, name, "cpu")
+        if rc != 0 or cpu_rc != 0:
+            with open(cpu + ".log") as f:
+                tail = f.read()[-2000:]
+            raise AssertionError(f"cli.main {name}: card returned {rc}, "
+                                 f"CPU returned {cpu_rc}:\n{tail}")
+        return {str(self.device): card_s, "cpu": cpu_s}, (card, cpu)
+
+
 def modes_gpu_vs_cpu(device) -> dict:
     """Phase 3 for the modes: each through the command line on the card
     and on the CPU, on FR pairs of a 26 kb community with a circle:
     identical contigs, scaffolds, GFA segments, links and P-lines,
     ``.paths``, ``final.lib_data``, circular and linear candidates and
     components."""
-    from spades_for_blackbird_tpu_torch import cli
     tmp = tempfile.mkdtemp(prefix="chip_smoke_modes_")
     record = {}
     try:
         mates = community_20kb(tmp, np.random.default_rng(6))
+        argvs = {name: ["-1", mates[0], "-2", mates[1], "--only-assembler",
+                        "--checkpoints", "none"] + flags
+                 for name, flags in MODE_RUNS}
+        with CardAndCpu(device, tmp) as both:
+            for name, argv in argvs.items():
+                both.submit(name, argv)
+            done = {name: both.run(name, argv)
+                    for name, argv in argvs.items()}
         for name, flags in MODE_RUNS:
-            argv = ["-1", mates[0], "-2", mates[1], "--only-assembler",
-                    "--checkpoints", "none"] + flags
-            walls = {}
-            for dev in (str(device), "cpu"):
-                t0 = time.perf_counter()
-                rc = cli.main(argv + ["-o", os.path.join(tmp, name, dev),
-                                      "--device", dev])
-                walls[dev] = time.perf_counter() - t0
-                if rc != 0:
-                    raise AssertionError(f"cli.main {name} --device {dev} "
-                                         f"returned {rc}")
-            card, cpu = (os.path.join(tmp, name, d)
-                         for d in (str(device), "cpu"))
-            files = sorted(n for n in os.listdir(cpu) if n.endswith(
-                (".fasta", ".paths", ".lib_data")))
-            if files != sorted(n for n in os.listdir(card) if n.endswith(
-                    (".fasta", ".paths", ".lib_data"))):
-                raise AssertionError(f"{name}: the card and the CPU wrote "
-                                     f"other files")
-            for fname in files:
-                if fname.endswith(".fasta"):
-                    same_records(fasta_records(os.path.join(card, fname)),
-                                 fasta_records(os.path.join(cpu, fname)),
-                                 f"{name} {fname}")
-                else:
-                    texts = [open(os.path.join(d, fname)).read()
-                             for d in (card, cpu)]
-                    if texts[0] != texts[1]:
-                        raise AssertionError(f"{name} {fname} differs")
-            (sa, la, pa), (sb, lb, pb) = (gfa_records(os.path.join(
-                d, "assembly_graph_with_scaffolds.gfa")) for d in (card, cpu))
-            if [x[:2] for x in sa] != [x[:2] for x in sb] or la != lb \
-                    or pa != pb or not np.allclose(
-                        [x[2] for x in sa], [x[2] for x in sb],
-                        rtol=COV_RTOL, atol=1e-6):
-                raise AssertionError(f"{name}: GFA segments, links or paths "
-                                     f"differ between card and CPU")
+            walls, (card, cpu) = done[name]
+            files, sa, pa = compare_outputs(card, cpu, name)
             contigs = fasta_records(os.path.join(card, "contigs.fasta"))
             record[name] = {"files": files, "contigs": len(contigs),
                             "segments": len(sa), "paths": len(pa),
@@ -2264,8 +2380,8 @@ def phase_plasmid(device, genome, codes, quals, tmp) -> dict:
     log(f"[plasmid] phase 8's 2 x {half} reads plus 2 x {n_extra} of the "
         f"plasmids written in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(tmp, "plasmid")
-    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--plasmid",
-            "--checkpoints", "none", "--trace-time"]
+    argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--plasmid", "-k",
+            str(FULL_K), "--checkpoints", "none", "--trace-time"]
     with plain_extraction_refused():
         wall, launches, by_stage, peak = mode_run(device, argv, kernel)
     stages, spans = stage_seconds(out, [
@@ -2472,10 +2588,934 @@ def phase_rna(device, tmp, scale: float = 1.0) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------
+# Hybrid long reads, the HMM modes and the series analysis (phases 2, 3,
+# 15): the hand kernels with no TPU counterpart
+# ---------------------------------------------------------------------
+
+ED_SOURCE = f"{PACKAGE}/csrc/banded_ed.cu"
+ED_REPLACES = "spades_for_blackbird_tpu/ops/align.py:25"
+VITERBI_SOURCE = f"{PACKAGE}/csrc/viterbi.cu"
+VITERBI_REPLACES = "spades_for_blackbird_tpu/ops/hmm.py:89"
+FP32_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+ED_BAND = 48             # hybrid_close_gaps' band
+ED_CELL_OPS = 12         # integer operations a DP cell: 2 adds, 3 mins,
+#                          a compare pair, the scan's min and the masks
+VITERBI_NODE_OPS = 20    # float32 adds, compares and selects a node a
+#                          position (the four-way max, the insert, the
+#                          delete chain and its scan, the exit)
+VITERBI_PLAIN_CUT = 4000  # positions of each row the plain version runs
+HYBRID_HOLES = 24        # phase 15 (a): holes in the short reads
+HOLE_LEN = (400, 1000)
+LONG_COVERAGE = 5.0
+LONG_LEN = (2_000, 20_000)
+LONG_ERROR = 0.10        # split evenly: substitutions, insertions, deletions
+HOLES_BRIDGED = 0.25     # share of the holes one record must span on the
+#                          1/20 cut (one stage joins 10 of 24 there, in
+#                          both packages: tests/test_torch_long_read.py)
+HOLES_BRIDGED_FULL = 0.0  # at full size (PERF.md section 6: random 15-mer
+#                          seeds inside a hole break the JAX package's
+#                          seed chains there; ROADMAP Queue 3, item 14)
+HYBRID_CUT = FULL_GENOME // 20
+CLUSTERS = 8             # phase 15 (b): domain clusters planted
+DOMAINS = 12             # profiles (one a domain)
+DOMAIN_AA = (120, 300)
+CLUSTER_DOMAINS = (3, 5)
+CLUSTER_GAP = (1_000, 5_000)
+HYBRID_3_GENOME = 12_000  # phase 3: the hybrid and HMM command lines
+SERIES_K = 21            # phase 15 (c): the profile's k
+SERIES_MIN_MULT = 3      # drops most read-error k-mers before the save
+SERIES_RTOL = 0.20       # an edge's median sample ratio vs the planted one
+SERIES_MIN_EDGE = 1_000  # edges graded for the ratios
+
+
+def new_kernels():
+    """{name: wrapper} of the hand kernels with no TPU counterpart."""
+    from spades_for_blackbird_tpu_torch.ops import align, hmm
+    return {"banded_ed": align.banded_edit_distance,
+            "viterbi": hmm.viterbi_kernel}
+
+
+def all_kernels():
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    return dict(kmer_extract=kmer_cuda.extract_sort_keys, **new_kernels())
+
+
+def ed_bound(a_len, b_len, L: int, band: int):
+    """(bound ms, what bounds it) of one banded edit distance call: the
+    DP cells its pairs need (the band times each pair's columns) at
+    ED_CELL_OPS integer operations, against the rows and lengths read
+    once and the distances written once."""
+    cells = (2 * band + 1) * int(np.minimum(b_len, L).sum())
+    ops_ms = cells * ED_CELL_OPS / INT_OPS_PER_S * 1e3
+    bytes_ms = (2 * len(a_len) * L + 12 * len(a_len)) / HBM_BYTES_PER_S \
+        * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def viterbi_bound(lengths, L: int, m: int):
+    """(bound ms, what bounds it) of one Viterbi launch: the (position,
+    node) steps of the rows' own lengths at VITERBI_NODE_OPS float32
+    operations, against the rows, lengths and profile read once and the
+    end scores and starts written once."""
+    B = len(lengths)
+    steps = int(np.minimum(lengths, L).sum()) * m
+    ops_ms = steps * VITERBI_NODE_OPS / FP32_OPS_PER_S * 1e3
+    moved = B * L + 4 * B + 4 * 28 * m + 8 * B * L
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def ed_pairs(rng, B: int, L: int, band: int, ragged: bool):
+    """Pairs as the hybrid stages hand them over: a fill against a second
+    read's fill (10% substitutions), all of width L; ``ragged`` adds
+    lengths 0 and 1 and length differences past the band."""
+    a = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    b = np.where(rng.random((B, L)) < 0.1, rng.integers(0, 4, (B, L)),
+                 a).astype(np.uint8)
+    a_len = np.full(B, L, np.int32)
+    b_len = np.full(B, L, np.int32)
+    if ragged:
+        a_len = rng.integers(0, L + 1, B).astype(np.int32)
+        b_len = np.clip(a_len + rng.integers(-2 * band, 2 * band + 1, B),
+                        0, L).astype(np.int32)
+        a_len[0], b_len[0] = 0, min(L, 5)
+        if B > 1:
+            a_len[1], b_len[1] = min(L, 1), 0
+        if B > 2:
+            a_len[2], b_len[2] = L, max(L - band - 7, 0)
+    for x, n in ((a, a_len), (b, b_len)):
+        x[np.arange(L)[None, :] >= n[:, None]] = 4
+    return a, a_len, b, b_len
+
+
+def viterbi_rows_vs_plain(device, profile, seqs, lengths, cut=None) -> float:
+    """The kernel against its plain version on the same rows (cut to
+    their first ``cut`` positions): the largest end-score difference at
+    positions within each row's length (0.0: bit-equal); raises unless
+    the scores and starts there are bit-equal."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    if cut is not None:
+        seqs = seqs[:, :cut]
+        lengths = np.minimum(lengths, cut)
+    args = hmm.profile_tensors(profile, device)
+    s = torch.from_numpy(np.ascontiguousarray(seqs)).to(device)
+    ln = torch.from_numpy(np.ascontiguousarray(lengths)).to(device)
+    es, st = hmm.viterbi_kernel(*args, s, ln, profile.length)
+    pes, pst = hmm.viterbi_ends_plain(*args, s, ln, profile.length)
+    torch.cuda.synchronize()
+    inside = (torch.arange(s.shape[1], device=device)[None, :]
+              < ln[:, None])
+    err = float(torch.where(inside, (es - pes).abs(), 0).max()) \
+        if s.numel() else 0.0
+    if err != 0.0 or not bool(((st == pst) | ~inside).all()):
+        raise AssertionError(f"viterbi kernel != plain at m="
+                             f"{profile.length}, rows {tuple(s.shape)}")
+    return err
+
+
+def consensus_rows(rng, cons, B: int, L: int):
+    """AA rows with a mutated copy of ``cons`` planted in each, ragged
+    lengths (0 and 1 included) and stop codons."""
+    seqs = rng.integers(0, 21, (B, L)).astype(np.uint8)
+    m = len(cons)
+    for b in range(B):
+        at = int(rng.integers(0, max(1, L - m)))
+        copy = np.where(rng.random(m) < 0.1, rng.integers(0, 20, m), cons)
+        seqs[b, at:at + m] = copy[:L - at]
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[:3] = (0, 1, L)
+    return seqs, lengths
+
+
+def phase_new_kernels(device) -> dict:
+    """Phase 2 for the hand kernels with no TPU counterpart: banded_ed
+    at the hybrid stages' shapes (B = 1-8, L up to 2,000, band 48) and
+    ragged ones, bit-equal to its plain version; viterbi at profile
+    lengths 120, 300 and 1,100 (two nodes a thread), bit-equal within
+    each row's length. CUDA events time the bare launches beside the
+    bound and the plain versions."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import align, hmm
+    rng = np.random.default_rng(15)
+    ed = align.banded_edit_distance
+    ed_rows = []
+    for B, L, ragged in ((1, 2000, False), (8, 2000, False),
+                         (8, 2000, True), (5, 600, True), (3, 1, False),
+                         (2, 300, True)):
+        a, al, b, bl = (torch.from_numpy(x).to(device)
+                        for x in ed_pairs(rng, B, L, ED_BAND, ragged))
+        got = ed(a, al, b, bl, ED_BAND)
+        want = align.banded_edit_distance_plain(a, al, b, bl, ED_BAND)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        row = {"B": B, "L": L, "band": ED_BAND, "ragged": ragged,
+               "max_abs_err": err}
+        if err != 0.0:
+            raise AssertionError(f"banded_ed kernel != plain at {row}")
+        if (B, L, ragged) == (8, 2000, False):
+            out = torch.empty(B, dtype=torch.int32, device=device)
+            row["ms"] = cuda_ms(lambda: ed.launch(a, al, b, bl, ED_BAND,
+                                                  out), 20)
+            row["plain_ms"] = cuda_ms(
+                lambda: align.banded_edit_distance_plain(a, al, b, bl,
+                                                         ED_BAND), 2)
+            row["bound_ms"], row["bound_by"] = ed_bound(
+                al.cpu().numpy(), bl.cpu().numpy(), L, ED_BAND)
+            log(f"[kernel] banded_ed B={B} L={L} band={ED_BAND}: "
+                f"{row['ms']:.3f} ms (bound {row['bound_ms']:.6f} ms, by "
+                f"{row['bound_by']}), plain {row['plain_ms']:.3f} ms")
+        log(f"[kernel] banded_ed B={B} L={L} ragged={ragged}: "
+            f"max_abs_err={err}")
+        ed_rows.append(row)
+    vit_rows = []
+    for m, B, L in ((120, 12, 3000), (300, 12, 3000), (1100, 4, 800)):
+        cons = rng.integers(0, 20, m).astype(np.uint8)
+        profile = hmm.hmm_from_consensus(f"c{m}", cons)
+        seqs, lengths = consensus_rows(rng, cons, B, L)
+        err = viterbi_rows_vs_plain(device, profile, seqs, lengths)
+        row = {"m": m, "B": B, "L": L, "max_abs_err": err}
+        if m == 300:
+            args = hmm.profile_tensors(profile, device)
+            s = torch.from_numpy(seqs).to(device)
+            ln = torch.from_numpy(lengths).to(device)
+            matchT = args[0].t().contiguous()
+            trans = torch.stack(args[1:]).contiguous()
+            es = torch.empty((B, L), dtype=torch.float32, device=device)
+            st = torch.empty((B, L), dtype=torch.int32, device=device)
+            row["ms"] = cuda_ms(lambda: hmm.viterbi_kernel.launch(
+                matchT, trans, s, ln, m, es, st), 5)
+            row["plain_ms"] = cuda_ms(
+                lambda: hmm.viterbi_ends_plain(*args, s, ln, m), 1)
+            row["bound_ms"], row["bound_by"] = viterbi_bound(lengths, L, m)
+            log(f"[kernel] viterbi m={m} B={B} L={L}: {row['ms']:.3f} ms "
+                f"(bound {row['bound_ms']:.6f} ms, by {row['bound_by']}), "
+                f"plain {row['plain_ms']:.3f} ms")
+        log(f"[kernel] viterbi m={m} B={B} L={L}: max_abs_err={err}")
+        vit_rows.append(row)
+    return {"banded_ed": ed_rows, "viterbi": vit_rows}
+
+
+def noisy_codes(rng, codes, rate: float) -> np.ndarray:
+    """The JAX tests' ``noisy``: each base deleted, substituted by a
+    random base, or followed by an inserted random base, each with
+    probability rate / 3."""
+    r = rng.random(len(codes))
+    keep = r >= rate / 3
+    sub = keep & (r < 2 * rate / 3)
+    ins = (r >= 2 * rate / 3) & (r < rate)
+    base = np.where(sub, rng.integers(0, 4, len(codes)), codes)
+    counts = keep.astype(np.int64) + ins
+    out = np.repeat(base.astype(np.uint8), counts)
+    at = np.cumsum(counts)[ins] - 1
+    out[at] = rng.integers(0, 4, len(at))
+    return out
+
+
+def long_reads(rng, g, coverage: float, lengths, rate: float):
+    """Noisy long reads of the codes ``g``: lengths uniform in
+    ``lengths``, anywhere on either strand, until ``coverage``."""
+    reads, total = [], 0
+    while total < coverage * len(g):
+        n = int(rng.integers(lengths[0], lengths[1] + 1))
+        at = int(rng.integers(0, len(g) - n + 1))
+        r = g[at:at + n]
+        if rng.random() < 0.5:
+            r = 3 - r[::-1]
+        reads.append(noisy_codes(rng, r, rate))
+        total += n
+    return reads
+
+
+def write_fasta_codes(path: str, reads) -> None:
+    from spades_for_blackbird_tpu_torch.ops import dna
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b">lr_%d\n%s\n" % (i, dna.CODE_TO_CHAR[r].tobytes()))
+
+
+def reverse_translated(rng, aa_codes) -> np.ndarray:
+    """DNA codes of an AA sequence, a random synonymous codon a residue
+    (so no two copies of a domain share long exact stretches)."""
+    from spades_for_blackbird_tpu_torch.ops import aa
+    base = {"A": 0, "C": 1, "G": 2, "T": 3}
+    codons = [[] for _ in range(aa.NUM_AA)]
+    for codon, res in aa._CODON_TABLE_STR.items():
+        if res != "*":
+            codons[aa.AA_CODE[res]].append([base[c] for c in codon])
+    pick = [codons[a][int(rng.integers(len(codons[a])))] for a in aa_codes]
+    return np.asarray(pick, np.uint8).reshape(-1)
+
+
+def repeated_positions(g) -> np.ndarray:
+    """(len(g),) bool: inside a canonical 21-mer seen twice or more."""
+    km = packed_kmers(g)
+    _, inv, cnt = np.unique(km, return_inverse=True, return_counts=True)
+    dup = (cnt[inv] > 1).astype(np.int64)
+    edge = np.zeros(len(g) + 1, np.int64)
+    np.add.at(edge, np.nonzero(dup)[0], 1)
+    np.add.at(edge, np.nonzero(dup)[0] + 21, -1)
+    return np.cumsum(edge)[:len(g)] > 0
+
+
+def hybrid_genome(size: int = FULL_GENOME, n_clusters: int = CLUSTERS):
+    """Phase 15's genome: phase 8's (seed 7, its planted repeats; at
+    another ``size`` the same simulation cut) with ``n_clusters``
+    clusters of 3-5 domains planted in every fourth of 32 slots, and
+    HYBRID_HOLES holes of 400-1,000 bases in the other slots, each at
+    least 2 kb from a repeated 21-mer. Returns (genome, codes, the
+    domains' AA codes, clusters as (start, end, [domain names]), holes
+    as (start, end))."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    g = dna.encode_str(simulate.random_genome(
+        size, seed=7, repeats=[(2000, 3), (700, 4), (400, 6)])).copy()
+    rng = np.random.default_rng(150)
+    repeated = repeated_positions(g)
+
+    def clear(lo, hi):
+        return not repeated[max(lo - 2000, 0):hi + 2000].any()
+    domains = [rng.integers(0, 20, int(rng.integers(DOMAIN_AA[0],
+                                                    DOMAIN_AA[1] + 1)))
+               for _ in range(DOMAINS)]
+    slot = size // 32
+    clusters = []
+    for c in range(n_clusters):
+        ids = rng.choice(DOMAINS, int(rng.integers(CLUSTER_DOMAINS[0],
+                                                   CLUSTER_DOMAINS[1] + 1)),
+                         replace=False)
+        pieces = [reverse_translated(rng, domains[i]) for i in ids]
+        gaps = list(rng.integers(CLUSTER_GAP[0], CLUSTER_GAP[1] + 1,
+                                 len(ids) - 1)) + [0]
+        span = sum(map(len, pieces)) + sum(gaps)
+        lo = 4 * c * slot + 10_000
+        while not clear(lo, lo + span):
+            lo += 5_000
+        at = lo
+        for piece, gap in zip(pieces, gaps):
+            g[at:at + len(piece)] = piece
+            at += len(piece) + int(gap)
+        clusters.append((lo, at, [f"dom{i:02d}" for i in ids]))
+    holes = []
+    for s in range(32):
+        if s % 4 == 0:
+            continue
+        n = int(rng.integers(HOLE_LEN[0], HOLE_LEN[1] + 1))
+        lo = s * slot + slot // 2
+        while not clear(lo, lo + n):
+            lo += 5_000
+        holes.append((lo, lo + n))
+    return dna.decode_codes(g), g, domains, clusters, holes
+
+
+def mates_in_holes(start, ins, holes) -> np.ndarray:
+    """(n_pairs,) bool: a mate of the pair (fragment ``start``, length
+    ``ins``, reads of FULL_READ_LEN) overlaps one of the sorted,
+    disjoint ``holes``."""
+    hs = np.asarray([h[0] for h in holes])
+    he = np.asarray([h[1] for h in holes])
+    hit = np.zeros(len(start), bool)
+    for lo in (start, start + ins - FULL_READ_LEN):
+        j = np.searchsorted(he, lo, side="right")
+        ok = j < len(hs)
+        hit |= ok & (hs[np.minimum(j, len(hs) - 1)] < lo + FULL_READ_LEN)
+    return hit
+
+
+def hybrid_pairs(rng, g, holes):
+    """FR pairs at FULL_COVERAGE over the linear codes ``g`` with errors
+    and qualities: (codes1, quals1, codes2, quals2, in_hole mask)."""
+    rl = FULL_READ_LEN
+    n_pairs = int(FULL_COVERAGE * len(g) / (2 * rl))
+    ins = np.clip(rng.normal(300.0, 25.0, n_pairs).astype(np.int64), rl,
+                  len(g))
+    start = (rng.random(n_pairs) * (len(g) - ins + 1)).astype(np.int64)
+    offs = np.arange(rl)
+    r1 = g[start[:, None] + offs]
+    r2 = 3 - g[(start + ins - rl)[:, None] + offs][:, ::-1]
+    flip = rng.random(n_pairs) < 0.5
+    r1, r2 = (np.where(flip[:, None], 3 - r2[:, ::-1], r1),
+              np.where(flip[:, None], 3 - r1[:, ::-1], r2))
+    c1, q1 = with_errors(rng, r1.astype(np.uint8))
+    c2, q2 = with_errors(rng, r2.astype(np.uint8))
+    return c1, q1, c2, q2, mates_in_holes(start, ins, holes)
+
+
+@contextlib.contextmanager
+def launches_of_stages(kernels: dict):
+    """While open, every stage list the command line builds counts the
+    launches of each of ``kernels`` inside each stage: yields {stage
+    name: {kernel name: launches}}."""
+    import dataclasses as dc
+    from spades_for_blackbird_tpu_torch.pipeline import spades_stages
+    counts: dict[str, dict[str, int]] = {}
+    build = spades_stages.build_stage_list
+
+    def counted(stage):
+        def fn(ctx):
+            before = {n: k.launches for n, k in kernels.items()}
+            try:
+                return stage.fn(ctx)
+            finally:
+                mine = counts.setdefault(stage.name, {})
+                for n, k in kernels.items():
+                    mine[n] = mine.get(n, 0) + k.launches - before[n]
+        return dc.replace(stage, fn=fn)
+
+    def wrapped(*args, **kwargs):
+        return [counted(s) for s in build(*args, **kwargs)]
+    spades_stages.build_stage_list = wrapped
+    try:
+        yield counts
+    finally:
+        spades_stages.build_stage_list = build
+
+
+def counted_cli(device, argv):
+    """``cli.main(argv)`` with every kernel's count at 0 before it:
+    (wall s, {kernel: launches}, {stage: {kernel: launches}}, peak device
+    bytes); raises unless it returns 0."""
+    import torch
+    from spades_for_blackbird_tpu_torch import cli
+    kernels = all_kernels()
+    with launches_of_stages(kernels) as by_stage:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+    if rc != 0:
+        raise AssertionError(f"cli.main {' '.join(argv)} returned {rc}")
+    return wall, launches, dict(by_stage), \
+        torch.cuda.max_memory_allocated(device)
+
+
+def hmm_profiles(domains):
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    return [hmm.hmm_from_consensus(f"dom{i:02d}", d)
+            for i, d in enumerate(domains)]
+
+
+def hybrid_modes_gpu_vs_cpu(device) -> dict:
+    """Phase 3 for the hybrid, HMM and series command lines, each on the
+    card and on the CPU at -k 21 --only-assembler --checkpoints none:
+    ``-1/-2 --pacbio`` and ``--sanger`` (FR pairs of a 12 kb genome
+    with a 600 bp hole, ten noisy long reads across it), ``--bio
+    --custom-hmms`` and ``--corona --custom-hmms`` (all the pairs; two
+    domains planted 800 bases apart) and ``--series-analysis`` (a
+    two-sample profile: the pairs and a third of them): identical
+    FASTA, ``.paths``, ``final.lib_data``, GFA and HMM files, and
+    identical series files."""
+    from spades_for_blackbird_tpu_torch.io import hmmfile
+    from spades_for_blackbird_tpu_torch.mts import abundance
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    rng = np.random.default_rng(16)
+    record = {}
+    try:
+        g = dna.encode_str(simulate.random_genome(HYBRID_3_GENOME,
+                                                  seed=17)).copy()
+        domains = [rng.integers(0, 20, 150), rng.integers(0, 20, 200)]
+        at = 3_000
+        for d in domains:
+            piece = reverse_translated(rng, d)
+            g[at:at + len(piece)] = piece
+            at += len(piece) + 800
+        hole = [(8_000, 8_600)]
+        c1, q1, c2, q2, in_hole = hybrid_pairs(rng, g, hole)
+        full = [os.path.join(tmp, f"all_{m}.fastq") for m in (1, 2)]
+        holed = [os.path.join(tmp, f"holed_{m}.fastq") for m in (1, 2)]
+        for path, c, q in zip(full, (c1, c2), (q1, q2)):
+            write_fastq(path, c, q)
+        for path, c, q in zip(holed, (c1, c2), (q1, q2)):
+            write_fastq(path, c[~in_hole], q[~in_hole])
+        lr = os.path.join(tmp, "long.fasta")
+        write_fasta_codes(lr, [noisy_codes(rng, g[lo:lo + 3000], LONG_ERROR)
+                               for lo in range(6_800, 7_300, 50)])
+        hmm_path = os.path.join(tmp, "models.hmm")
+        hmmfile.write_hmm_file(hmm_path, hmm_profiles(domains))
+        both = np.concatenate([c1, c2])
+        lens = np.full(len(both), FULL_READ_LEN, np.int32)
+        abundance.save_profiles(os.path.join(tmp, "prof.npz"), *abundance.
+                                multiplicity_profiles(
+                                    [(both, lens), (both[::3], lens[::3])],
+                                    SERIES_K, device=device), SERIES_K)
+        for dev in (str(device), "cpu"):
+            with open(os.path.join(tmp, f"series_{dev}.yaml"), "w") as f:
+                f.write(f"kmer_mult: {tmp}/prof.npz\nfrag_size: 200\n"
+                        + "".join(f"{key}: {tmp}/{dev}_{key}\n" for key in (
+                            "edges_sqn", "edges_mpl", "edge_fragments_mpl")))
+        runs = (("pacbio", holed, ["--pacbio", lr]),
+                ("sanger", holed, ["--sanger", lr]),
+                ("bio", full, ["--bio", "--custom-hmms", hmm_path]),
+                ("corona", full, ["--corona", "--custom-hmms", hmm_path]),
+                ("series", full, ["--series-analysis",
+                                  os.path.join(tmp, "series_{dev}.yaml")]))
+        argvs = {name: ["-1", m1, "-2", m2, "-k", "21", "--only-assembler",
+                        "--checkpoints", "none"] + flags
+                 for name, (m1, m2), flags in runs}
+        with CardAndCpu(device, tmp) as both:
+            for name, argv in argvs.items():
+                both.submit(name, argv)
+            done = {name: both.run(name, argv)
+                    for name, argv in argvs.items()}
+        for name, _, flags in runs:
+            walls, (card, cpu) = done[name]
+            files, sa, pa = compare_outputs(card, cpu, name)
+            if name == "series":
+                for key in ("edges_sqn", "edges_mpl", "edge_fragments_mpl"):
+                    texts = [open(os.path.join(tmp, f"{d}_{key}")).read()
+                             for d in (str(device), "cpu")]
+                    if texts[0] != texts[1] or not texts[0]:
+                        raise AssertionError(f"series {key} differs")
+                    files.append(key)
+            lines = log_lines(card, ["hybrid gap closing", "domain hits",
+                                     "domain graph", "series analysis"])
+            record[name] = {"files": files, "segments": len(sa),
+                            "paths": len(pa), "gpu_s": walls[str(device)],
+                            "cpu_s": walls["cpu"], "log": lines}
+            log(f"[gpu-vs-cpu] {HYBRID_3_GENOME // 1000} kb "
+                f"{' '.join(flags[:1])}: {len(sa)} "
+                f"segments, identical {', '.join(files)}; {lines}; card "
+                f"{walls[str(device)]:.2f} s, cpu {walls['cpu']:.2f} s")
+        if "1 joins" not in " ".join(record["pacbio"]["log"]):
+            raise AssertionError("--pacbio at 20 kb did not close the hole")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
+def spans_hole(seqs, genome: str, hole) -> bool:
+    """One of ``seqs`` holds both 100-mers 50 bases outside the hole, on
+    one strand."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    lo, hi = hole
+    left, right = genome[lo - 150:lo - 50], genome[hi + 50:hi + 150]
+    pairs = ((left, right), (dna.revcomp_str(right), dna.revcomp_str(left)))
+    return any(a in s and b in s for s in seqs for a, b in pairs)
+
+
+def touches_hole(seq: str, genome: str, holes) -> bool:
+    from spades_for_blackbird_tpu_torch.ops import dna
+    for lo, hi in holes:
+        for flank in (genome[lo - 150:lo - 50], genome[hi + 50:hi + 150]):
+            if flank in seq or dna.revcomp_str(flank) in seq:
+                return True
+    return False
+
+
+def hybrid_reads(tmp, g, holes, rng, name: str):
+    """Phase 15's reads of the codes ``g``: the FR pairs with qualities,
+    all (``<name>_[12].fastq``) and without the pairs that have a mate in
+    a hole (``<name>_holed_[12].fastq``), and the long reads
+    (``<name>_long.fasta``). Returns (all, holed, long-read path, pairs,
+    pairs kept, long reads, their bases)."""
+    c1, q1, c2, q2, in_hole = hybrid_pairs(rng, g, holes)
+    full = [os.path.join(tmp, f"{name}_{m}.fastq") for m in (1, 2)]
+    holed = [os.path.join(tmp, f"{name}_holed_{m}.fastq") for m in (1, 2)]
+    for path, c, q in zip(full, (c1, c2), (q1, q2)):
+        write_fastq(path, c, q)
+    for path, c, q in zip(holed, (c1, c2), (q1, q2)):
+        write_fastq(path, c[~in_hole], q[~in_hole])
+    lrs = long_reads(rng, g, LONG_COVERAGE, LONG_LEN, LONG_ERROR)
+    lr_path = os.path.join(tmp, f"{name}_long.fasta")
+    write_fasta_codes(lr_path, lrs)
+    return (full, holed, lr_path, len(in_hole), int((~in_hole).sum()),
+            len(lrs), sum(map(len, lrs)))
+
+
+def nanopore_run(device, tmp, genome, holes, holed, lr_path, bar: float,
+                 label: str = "nanopore") -> dict:
+    """``-1/-2 --nanopore`` on the holed pairs and the long reads: the
+    wall, peak memory, each kernel's launches by stage, the joins of
+    each hybrid stage, and for contigs and N-stripped scaffolds the
+    quality, the misassemblies outside the holes and the holes one
+    record spans; the quality bar, and at least ``bar`` of the holes
+    spanned."""
+    from spades_for_blackbird_tpu_torch.utils import assess
+    out = os.path.join(tmp, label)
+    argv = ["-1", holed[0], "-2", holed[1], "--nanopore", lr_path, "-o", out,
+            "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = counted_cli(device, argv)
+    stages, spans = stage_seconds(out, [
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "hybrid_aligning", "hybrid_aligning_2",
+        "repeat_resolution", "contig_output"])
+    with open(os.path.join(out, "spades.log")) as f:
+        joins = [int(x) for x in re.findall(
+            r"hybrid gap closing: (\d+) joins", f.read())]
+    rec = {"genome": len(genome), "wall_s": wall, "launches": launches,
+           "by_stage": by_stage, "peak_bytes": peak, "stages_s": stages,
+           "rr_align_long_reads_s": spans.get("rr_align_long_reads", 0.0),
+           "joins": joins}
+    for name in ("contigs", "scaffolds"):
+        seqs = [s for s, _ in read_fasta(os.path.join(out, f"{name}.fasta"))]
+        rep = assess.assess([s.replace("N", "") for s in seqs], genome)
+        near = [touches_hole(s, genome, holes) for s in seqs]
+        outside = sum(pc.get("misassemblies", 0)
+                      for pc, n in zip(rep.per_contig, near) if not n)
+        spanned = sum(spans_hole(seqs, genome, h) for h in holes)
+        rec[name] = dict(rep.to_dict(), misassemblies_outside_holes=outside,
+                         holes_spanned=spanned)
+        rec[name].pop("per_contig", None)
+        log(f"[hybrid] {label} {name}: {rep.n_contigs} records, NG50 "
+            f"{rep.ng50}, genome fraction {rep.genome_fraction:.5f}, "
+            f"misassemblies {rep.misassemblies} ({outside} outside the "
+            f"holes), holes spanned by one record {spanned} of "
+            f"{len(holes)}")
+    log(f"[hybrid] {label} cli.main -1 -2 --nanopore ({len(genome)} bp): "
+        f"{wall:.2f} s, peak device memory {peak / 2**30:.2f} GiB, launches "
+        f"{launches}, joins by stage {joins}, rr_align_long_reads "
+        f"{rec['rr_align_long_reads_s']:.3f} s")
+    for name, sec in stages.items():
+        log(f"[hybrid] {label} stage {name}: {sec:.3f} s "
+            f"{by_stage.get(name, {})}")
+    if launches["kmer_extract"] <= 0:
+        raise AssertionError(f"--nanopore launched {launches}")
+    # the quality bar on the genome outside the holes: a fill of long
+    # read bases (10% errors) covers no hole for utils/assess
+    outside_holes = 1 - sum(hi - lo for lo, hi in holes) / len(genome)
+    if rec["contigs"]["genome_fraction"] < 0.97 * outside_holes or \
+            rec["contigs"]["misassemblies_outside_holes"]:
+        raise AssertionError(f"--nanopore quality bar missed: "
+                             f"{rec['contigs']}")
+    bridged = max(rec["contigs"]["holes_spanned"],
+                  rec["scaffolds"]["holes_spanned"])
+    if bridged < bar * len(holes):
+        raise AssertionError(f"--nanopore bridged {bridged} of "
+                             f"{len(holes)} holes")
+    shutil.rmtree(out)
+    return rec
+
+
+def nanopore_cut(device, tmp) -> dict:
+    """Phase 15 (a) on the 1/20 cut of its data (the same simulation at
+    HYBRID_CUT bases, no domain clusters), where a long read's seed
+    chain crosses a hole cleanly often enough for joins: at least half
+    the holes spanned, the banded_ed kernel launched."""
+    genome, g, _, _, holes = hybrid_genome(HYBRID_CUT, n_clusters=0)
+    _, holed, lr_path, *_ = hybrid_reads(tmp, g, holes,
+                                         np.random.default_rng(153), "cut")
+    rec = nanopore_run(device, tmp, genome, holes, holed, lr_path,
+                       bar=HOLES_BRIDGED, label="nanopore_cut")
+    if rec["launches"]["banded_ed"] <= 0:
+        raise AssertionError("--nanopore on the cut never launched "
+                             "banded_ed")
+    for path in os.listdir(tmp):
+        if path.startswith("cut_"):
+            os.remove(os.path.join(tmp, path))
+    return rec
+
+
+def phase_hybrid(device, tmp) -> dict:
+    """Phase 15: hybrid long reads, the HMM modes and the series
+    analysis at full size. (a) ``-1/-2 --nanopore`` and (b) ``-1/-2
+    --bio --custom-hmms`` on phase 8's genome with its domain clusters
+    planted; (c) ``--series-analysis`` on three samples of phase 12's
+    genomes."""
+    from spades_for_blackbird_tpu_torch.io import hmmfile
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    t0 = time.perf_counter()
+    genome, g, domains, clusters, holes = hybrid_genome()
+    full, holed, lr_path, pairs, kept, n_long, long_bases = hybrid_reads(
+        tmp, g, holes, np.random.default_rng(151), "hybrid")
+    log(f"[hybrid] {len(genome) / 1e6:.1f} Mb genome with {len(clusters)} "
+        f"domain clusters and {len(holes)} holes "
+        f"({sum(h - l for l, h in holes)} bases); 2 x {kept} of 2 x "
+        f"{pairs} pairs outside the holes; {n_long} long reads "
+        f"({long_bases} bases); simulated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    record = {"holes": holes, "clusters": clusters}
+
+    # (a) --nanopore, at full size and on the 1/20 cut
+    record["nanopore"] = nanopore_run(device, tmp, genome, holes, holed,
+                                      lr_path, bar=HOLES_BRIDGED_FULL)
+    for path in holed + [lr_path]:
+        os.remove(path)
+    record["nanopore_cut"] = nanopore_cut(device, tmp)
+
+    # (b) --bio --custom-hmms
+    profiles = hmm_profiles(domains)
+    hmm_path = os.path.join(tmp, "models.hmm")
+    hmmfile.write_hmm_file(hmm_path, profiles)
+    out = os.path.join(tmp, "bio")
+    argv = ["-1", full[0], "-2", full[1], "--bio", "--custom-hmms", hmm_path,
+            "-o", out, "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = counted_cli(device, argv)
+    stages, spans = stage_seconds(out, [
+        "read_conversion", "error_correction", "k21", "k33", "k55",
+        "gap_closing", "repeat_resolution", "extract_domains",
+        "second_phase_setup", "repeat_resolution_2", "contig_output",
+        "domain_graph_construction"])
+    found = {}
+    for name, _ in fasta_records(os.path.join(out, "gene_clusters.fasta")):
+        m = re.match(r"cluster_\d+_(.+)_len_\d+$", name)
+        found[tuple(m.group(1).split("+"))] = name
+    held = [any(tuple(c[2]) == f or tuple(c[2][::-1]) == f for f in found)
+            for c in clusters]
+    rec = {"wall_s": wall, "launches": launches, "by_stage": by_stage,
+           "peak_bytes": peak, "stages_s": stages,
+           "clusters_held": int(sum(held)), "records": len(found)}
+    log(f"[hybrid] cli.main -1 -2 --bio --custom-hmms ({len(profiles)} "
+        f"profiles of {min(p.length for p in profiles)}-"
+        f"{max(p.length for p in profiles)} nodes): {wall:.2f} s, peak "
+        f"device memory {peak / 2**30:.2f} GiB, launches {launches}; "
+        f"{sum(held)} of {len(clusters)} clusters in gene_clusters.fasta "
+        f"with their domains in order ({len(found)} records)")
+    for name, sec in stages.items():
+        log(f"[hybrid] bio stage {name}: {sec:.3f} s "
+            f"{by_stage.get(name, {})}")
+    for line in log_lines(out, ["domain hits", "domain graph"]):
+        log(f"[hybrid] bio log: {line}")
+    if not all(held):
+        raise AssertionError(f"--bio: clusters missing from "
+                             f"gene_clusters.fasta: {held} {sorted(found)}")
+    if launches["viterbi"] <= 0:
+        raise AssertionError("--bio never launched the viterbi kernel")
+    # the kernel at the run's own rows and profiles: held against the
+    # plain version on every row cut to its first VITERBI_PLAIN_CUT
+    # positions, timed alone on the full rows
+    import torch
+    from spades_for_blackbird_tpu_torch.models import bio
+    contigs = [s for s, _ in read_fasta(os.path.join(out, "contigs.fasta"))]
+    frames = bio._frames(contigs)
+    L = max(len(f[3]) for f in frames)
+    seqs = np.full((len(frames), L), 20, np.uint8)
+    lengths = np.zeros(len(frames), np.int32)
+    for i, f in enumerate(frames):
+        seqs[i, :len(f[3])] = f[3]
+        lengths[i] = len(f[3])
+    by_m = sorted(profiles, key=lambda p: p.length)
+    errs = [viterbi_rows_vs_plain(device, p, seqs, lengths,
+                                  cut=VITERBI_PLAIN_CUT)
+            for p in (by_m[0], by_m[-1])]
+    big = by_m[-1]
+    args = hmm.profile_tensors(big, device)
+    s = torch.from_numpy(seqs).to(device)
+    ln = torch.from_numpy(lengths).to(device)
+    matchT = args[0].t().contiguous()
+    trans = torch.stack(args[1:]).contiguous()
+    es = torch.empty(s.shape, dtype=torch.float32, device=device)
+    st = torch.empty(s.shape, dtype=torch.int32, device=device)
+    full_ms = cuda_ms(lambda: hmm.viterbi_kernel.launch(
+        matchT, trans, s, ln, big.length, es, st), 2)
+    cut = VITERBI_PLAIN_CUT
+    sc, lc = s[:, :cut].contiguous(), torch.clamp(ln, max=cut)
+    plain_cut_ms = cuda_ms(lambda: hmm.viterbi_ends_plain(
+        *args, sc, lc, big.length), 1)
+    kernel_cut_ms = cuda_ms(lambda: hmm.viterbi_kernel(
+        *args, sc, lc, big.length), 2)
+    bound_ms, bound_by = viterbi_bound(lengths, L, big.length)
+    cut_bound_ms, cut_bound_by = viterbi_bound(np.minimum(lengths, cut),
+                                               cut, big.length)
+    del es, st, s, sc
+    rec["viterbi"] = {"rows": len(frames), "m": big.length,
+                      "max_abs_err": max(errs),
+                      "profiles_compared": len(errs),
+                      "cut": {"L": cut, "ms": kernel_cut_ms,
+                              "plain_ms": plain_cut_ms,
+                              "bound_ms": cut_bound_ms,
+                              "bound_by": cut_bound_by},
+                      "full": {"L": L, "ms": full_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by}}
+    log(f"[hybrid] viterbi on the run's {len(frames)} rows, m="
+        f"{big.length}: cut to {cut} positions {kernel_cut_ms:.3f} ms "
+        f"(bound {cut_bound_ms:.6f} ms, by {cut_bound_by}), plain "
+        f"{plain_cut_ms:.3f} ms, bit-equal for {len(errs)} profiles; full "
+        f"(longest {L} positions) {full_ms:.3f} ms a launch (bound "
+        f"{bound_ms:.6f} ms)")
+    torch.cuda.empty_cache()
+    record["bio"] = rec
+    shutil.rmtree(out)
+    for path in full:
+        os.remove(path)
+    record["series"] = series_run(device, tmp)
+    return record
+
+
+def series_run(device, tmp) -> dict:
+    """Phase 15 (c): three samples of phase 12's four genomes at their
+    coverages rotated a step a sample; the profile of all three counted
+    on the card and saved in the JAX package's format; ``-1/-2
+    --only-assembler -k 55 --series-analysis`` on the first sample. Each
+    genome's edges must follow its planted ratios: the median of its
+    edges' sample ratios within SERIES_RTOL of the planted one."""
+    import torch
+    from spades_for_blackbird_tpu_torch.mts import abundance
+    from spades_for_blackbird_tpu_torch.ops import dna
+    t0 = time.perf_counter()
+    genomes, _, _ = metagenome(META_SCALE)
+    covs = [c for _, _, _, _, c in META_GENOMES]
+    names = list(genomes)
+    rng = np.random.default_rng(152)
+    codes = {name: dna.encode_str(s) for name, s in genomes.items()}
+    planted = {name: [covs[(i + s) % len(covs)] for s in range(3)]
+               for i, name in enumerate(names)}
+    samples = []
+    for s in range(3):
+        parts = [sample_pairs(rng, codes[n], int(len(codes[n])
+                                                 * planted[n][s] / 200))
+                 for n in names]
+        r1 = np.concatenate([p[0] for p in parts])
+        r2 = np.concatenate([p[1] for p in parts])
+        samples.append([with_errors(rng, r) for r in (r1, r2)])
+    mates = [os.path.join(tmp, f"series_{m}.fastq") for m in (1, 2)]
+    for path, (c, q) in zip(mates, samples[0]):
+        write_fastq(path, c, q)
+    t1 = time.perf_counter()
+    batches = []
+    for sample in samples:
+        both = np.concatenate([sample[0][0], sample[1][0]])
+        batches.append((both, np.full(len(both), FULL_READ_LEN, np.int32)))
+    del samples
+    torch.cuda.synchronize()
+    before = {n: k.launches for n, k in all_kernels().items()}
+    kmers, mult = abundance.multiplicity_profiles(
+        batches, SERIES_K, min_mult=SERIES_MIN_MULT, device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prof_path = os.path.join(tmp, "series_profile.npz")
+    abundance.save_profiles(prof_path, kmers, mult, SERIES_K)
+    t3 = time.perf_counter()
+    profile_launches = {n: k.launches - before[n]
+                        for n, k in all_kernels().items()}
+    reads = [len(b[0]) for b in batches]
+    del batches
+    log(f"[series] 3 samples of {sum(map(len, genomes.values()))} bp "
+        f"({reads} reads) simulated in {t1 - t0:.1f} s; profile of "
+        f"{len(kmers)} k-mers (k={SERIES_K}, total >= {SERIES_MIN_MULT}) "
+        f"counted on the card in {t2 - t1:.2f} s ({profile_launches}), "
+        f"saved in {t3 - t2:.2f} s")
+    yaml = os.path.join(tmp, "series.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"k: {SERIES_K}\nsample_cnt: 3\nkmer_mult: {prof_path}\n"
+                f"min_len: 0\nfrag_size: 200\n" + "".join(
+                    f"{key}: {tmp}/series_{key}\n" for key in (
+                        "edges_sqn", "edges_mpl", "edge_fragments_mpl")))
+    out = os.path.join(tmp, "series")
+    argv = ["-1", mates[0], "-2", mates[1], "--only-assembler", "-k",
+            str(FULL_K), "--series-analysis", yaml, "-o", out,
+            "--checkpoints", "none", "--trace-time"]
+    with plain_extraction_refused():
+        wall, launches, by_stage, peak = counted_cli(device, argv)
+    stages, _ = stage_seconds(out, ["read_conversion", f"k{FULL_K}",
+                                    "gap_closing", "series_analysis",
+                                    "repeat_resolution", "contig_output"])
+    tables = {n: kmer_set(codes[n]) for n in names}
+    rows = {}
+    with open(os.path.join(tmp, "series_edges_mpl")) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            rows[parts[0]] = np.asarray(parts[1:], np.float64)
+    edge_seqs = dict(fasta_records(os.path.join(tmp, "series_edges_sqn")))
+    names_long = [n for n in rows if len(edge_seqs[n]) >= SERIES_MIN_EDGE]
+    src = assign_sources([edge_seqs[n] for n in names_long], tables)
+    grades = {}
+    for g in names:
+        prof = np.asarray([rows[n] for n, x in zip(names_long, src)
+                           if x == g])
+        prof = prof[prof[:, 0] > 0] if len(prof) else prof
+        got = [float(np.median(prof[:, s] / prof[:, 0])) if len(prof)
+               else float("nan") for s in (1, 2)]
+        want = [planted[g][s] / planted[g][0] for s in (1, 2)]
+        grades[g] = {"edges": int(len(prof)), "median_ratios": got,
+                     "planted_ratios": want}
+        log(f"[series] {g}: {len(prof)} edges >= {SERIES_MIN_EDGE} bp, "
+            f"median sample ratios {[round(x, 4) for x in got]} (planted "
+            f"{[round(x, 4) for x in want]})")
+        if not len(prof) or any(abs(a / b - 1) > SERIES_RTOL
+                                for a, b in zip(got, want)):
+            raise AssertionError(f"--series-analysis: {g} ratios {got} vs "
+                                 f"{want}")
+    log(f"[series] cli.main --only-assembler -k {FULL_K} "
+        f"--series-analysis: {wall:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches {launches}; {len(rows)} edges "
+        f"profiled; stages {stages}")
+    if by_stage.get("series_analysis", {}).get("kmer_extract", 0) <= 0:
+        raise AssertionError("series_analysis never launched the kernel")
+    shutil.rmtree(out)
+    for path in mates + [prof_path, yaml]:
+        os.remove(path)
+    return {"wall_s": wall, "launches": launches, "by_stage": by_stage,
+            "peak_bytes": peak, "stages_s": stages, "edges": len(rows),
+            "profile_kmers": int(len(kmers)), "profile_s": t2 - t1,
+            "profile_save_s": t3 - t2, "grades": grades}
+
+
+def new_kernel_lines(record: dict, runs: dict) -> list[dict]:
+    """The kernels line's entries of banded_ed and viterbi: launches on
+    the main paths (phase 15's runs), the largest difference from the
+    plain version over every comparison, and the timed shapes."""
+    new = record["kernel_vs_plain_new"]
+    ed_rows = new["banded_ed"]
+    ed = next(r for r in ed_rows if "ms" in r)
+    vit = record["hybrid"]["bio"]["viterbi"]
+    vit_rows = new["viterbi"]
+    return [{
+        "name": "banded_ed", "route": "cuda", "source": ED_SOURCE,
+        "replaces": ED_REPLACES,
+        "launches": sum(n["banded_ed"] for n in runs.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in ed_rows),
+        "ms": ed["ms"], "plain_ms": ed["plain_ms"],
+        "bound_ms": ed["bound_ms"], "bound_by": ed["bound_by"],
+        "library_ms": None,
+        "shape": {"B": ed["B"], "L": ed["L"], "band": ed["band"]},
+        "launch_sites": {name: n["banded_ed"] for name, n in runs.items()},
+    }, {
+        "name": "viterbi", "route": "cuda", "source": VITERBI_SOURCE,
+        "replaces": VITERBI_REPLACES,
+        "launches": sum(n["viterbi"] for n in runs.values()),
+        "max_abs_err": max([vit["max_abs_err"]]
+                           + [r["max_abs_err"] for r in vit_rows]),
+        "ms": vit["cut"]["ms"], "plain_ms": vit["cut"]["plain_ms"],
+        "bound_ms": vit["cut"]["bound_ms"], "bound_by": vit["cut"]["bound_by"],
+        "library_ms": None,
+        "shape": {"rows": vit["rows"], "L": vit["cut"]["L"], "m": vit["m"]},
+        "full_rows": dict(vit["full"], rows=vit["rows"], m=vit["m"]),
+        "synthetic": [{key: r[key] for key in r} for r in vit_rows],
+        "launch_sites": {name: n["viterbi"] for name, n in runs.items()},
+    }]
+
+
+def phase_build_alone(device) -> dict:
+    return phase_build()
+
+
+# the phases that need nothing of another: --only runs a few of them
+ALONE = {"build": (phase_build_alone, False),
+         "kernel_vs_plain": (phase_kernel_vs_plain, False),
+         "kernel_vs_plain_new": (phase_new_kernels, False),
+         "gpu_vs_cpu": (phase_gpu_vs_cpu, False),
+         "hybrid_gpu_vs_cpu": (hybrid_modes_gpu_vs_cpu, False),
+         "metagenome": (phase_metagenome, True),
+         "rna": (phase_rna, True),
+         "hybrid": (phase_hybrid, True)}
+
+
+def write_record(path: str, record: dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1, default=str)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help="run only these of the phases that stand alone "
+                         f"(comma-separated: {', '.join(ALONE)}) and "
+                         "print no result: a shorter check")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -2504,10 +3544,27 @@ def main(argv=None) -> int:
         finally:
             seconds[name] = time.perf_counter() - t0
             log(f"[timing] {name}: {seconds[name]:.1f} s")
+    if args.only:
+        try:
+            for name in args.only.split(","):
+                fn, with_tmp = ALONE[name]
+                record[name] = timed(name, fn, *(
+                    (device, tmp) if with_tmp else (device,)))
+        except Exception:  # any failed phase fails the smoke
+            traceback.print_exc()
+            print("chip_smoke: FAILED", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            if args.out:
+                write_record(args.out, record)
+        return 0
     try:
         record["build"] = timed("build", phase_build)
         record["kernel_vs_plain"] = timed("kernel_vs_plain",
                                           phase_kernel_vs_plain, device)
+        record["kernel_vs_plain_new"] = timed(
+            "kernel_vs_plain_new", phase_new_kernels, device)
         record["gpu_vs_cpu"] = timed("gpu_vs_cpu", phase_gpu_vs_cpu, device)
         record["full"], (genome, codes, lengths, quals, graph) = \
             timed("full", phase_full, device)
@@ -2520,16 +3577,18 @@ def main(argv=None) -> int:
         record["careful"] = timed("careful", phase_careful, device, genome,
                                   graph, codes, lengths, mates, tmp)
         del graph
-        record["sc"] = timed("sc", phase_sc, device, genome, tmp)
+        record["sc"] = timed("sc", phase_sc, device, genome[:SC_GENOME],
+                             tmp)
         record["fork"] = timed(
             "fork", phase_fork, device, genome, codes, lengths, mates,
             os.path.join(record["paired"]["out"],
                          "assembly_graph_with_scaffolds.gfa"), tmp)
         record["metagenome"] = timed("metagenome", phase_metagenome, device,
-                                     tmp)
+                                     tmp, META_SCALE)
         record["plasmid"] = timed("plasmid", phase_plasmid, device, genome,
                                   codes, quals, tmp)
         record["rna"] = timed("rna", phase_rna, device, tmp)
+        record["hybrid"] = timed("hybrid", phase_hybrid, device, tmp)
     except Exception:  # any failed phase fails the smoke
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2537,10 +3596,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         if args.out:
-            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                        exist_ok=True)
-            with open(args.out, "w") as f:
-                json.dump(record, f, indent=1)
+            write_record(args.out, record)
 
     rows = record["kernel_vs_plain"]["rows"]
     main_row = next(r for r in rows
@@ -2583,6 +3639,12 @@ def main(argv=None) -> int:
         "rna_cli": rna["rna"]["launches"],
         "ss_edge_split": rna["rna"]["launches_by_stage"]["ss_edge_split"],
         "rnaviral_cli": rna["rnaviral"]["launches"]}
+    hybrid = record["hybrid"]
+    new_runs = {"nanopore_cli": hybrid["nanopore"]["launches"],
+                "nanopore_cut_cli": hybrid["nanopore_cut"]["launches"],
+                "bio_cli": hybrid["bio"]["launches"],
+                "series_cli": hybrid["series"]["launches"]}
+    sites.update({name: n["kmer_extract"] for name, n in new_runs.items()})
     # the main paths' runs; gap_closing, repeat_resolution,
     # careful_stage, restricted_in_simplify, second_phase and
     # ss_edge_split count launches inside them
@@ -2591,7 +3653,8 @@ def main(argv=None) -> int:
         "paired_cli", "correct_mismatches", "careful_cli", "sc_cli",
         "uneven_single_k", "restricted_single_k", "free_single_k",
         "gfa_input_cli", "meta_cli", "metaplasmid_cli", "metaviral_cli",
-        "plasmid_cli", "rna_cli", "rnaviral_cli"))
+        "plasmid_cli", "rna_cli", "rnaviral_cli", "nanopore_cli",
+        "nanopore_cut_cli", "bio_cli", "series_cli"))
     log("kernel launches on the main paths: " + ", ".join(
         f"{name} {n}" for name, n in sites.items()))
     strand_row = next(r for r in rows if r.get("strand_ms") is not None
@@ -2628,7 +3691,7 @@ def main(argv=None) -> int:
                                         "strand_ms", "wrapper_ms",
                                         "plain_ms", "bound_ms", "bound_by")},
         "launch_sites": sites,
-    }]}))
+    }] + new_kernel_lines(record, new_runs)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,12 +11,14 @@ before_rr.fasta, assembly_graph_with_scaffolds.gfa, assembly_graph.fastg,
 spades.log, params.json, saves/).
 
 The run is on a CUDA card unless ``--device cpu`` is given; without a card
-and without that flag it exits 1 before it reads anything. Stages whose
-modules are not ported yet hold their places in the stage list; a run
-that would reach one exits 2 before any work, naming them: long reads
-(``--pacbio``, ``--nanopore``, ``--sanger``), the HMM stages (``--bio``,
-and ``--corona`` with ``--custom-hmms``) and ``--series-analysis``.
-``--careful`` adds mismatch correction after gap closing;
+and without that flag it exits 1 before it reads anything. Long reads
+(``--pacbio``, ``--nanopore``, ``--sanger``) add the two hybrid stages
+after gap closing and guide repeat resolution; ``--bio`` and ``--corona``
+with ``--custom-hmms`` add domain extraction before the second phase and
+the domain graph (``gene_clusters.fasta``, ``bgc_statistics.txt``,
+``domain_graph.dot``) at the end; ``--series-analysis`` profiles the
+graph's edges against a multi-sample k-mer table before repeat
+resolution. ``--careful`` adds mismatch correction after gap closing;
 ``--assembly-graph`` loads a GFA graph in place of the K ladder. The
 modes run as in the JAX package: ``--meta`` with its second phase and
 second repeat resolution, ``--plasmid``, ``--metaplasmid`` and
@@ -294,19 +296,13 @@ def _run(args, device) -> int:
     how = dict(continue_run=args.continue_run,
                restart_from=args.restart_from, stop_after=args.stop_after)
     # refuse before any work what the port cannot finish: a user should
-    # not wait through three rungs to meet a placeholder
+    # not wait through three rungs to meet an option it lacks
     try:
         planned = mgr.planned(**how)
         if any(s.name in {f"k{k}" for k in ks} for s in planned):
             runner.check_ported(cfg.simplify)
     except (ValueError, NotImplementedError) as e:
         return _error(str(e))
-    unported = [s.unported for s in planned if s.unported]
-    if unported:
-        return _error("this run needs what the port does not have yet:\n  "
-                      + "\n  ".join(unported)
-                      + "\n(--stop-after with an earlier stage runs the "
-                        "part that is ported)")
 
     if args.trace_time:
         timetrace.enable()

@@ -8,7 +8,8 @@ with ``numpy.asarray``) can enter any stage of the port, and the port's
 state can be compared bit for bit with it. The repeat resolution's
 state crosses too: the edge k-mer index (JAX words <-> fused keys), read
 and chain mappings, paired indices, insert-size statistics and path
-sets.
+sets; so do the profile HMMs of the HMM modes (their models play the
+part of a model's weights here) and the long-read alignments.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .kmers.extension import VertexTable
 from .mapping.index import EdgeKmerIndex
 from .mapping.mapper import ChainMapping, ReadMapping
 from .ops import dna, segments
+from .ops.hmm import HMMProfile
 from .paired.insert_size import InsertSizeStats
 from .paired.pair_info import PairedIndex, host_index
 from .path_extend.resolver import PathSet
@@ -264,3 +266,38 @@ def path_set_from_numpy(paths) -> PathSet:
 def path_set_to_numpy(ps) -> list[list[int]]:
     """PathSet -> its lists of edge ids."""
     return [[int(e) for e in p] for p in ps.paths]
+
+
+HMM_FIELDS = ("match", "tMM", "tMI", "tMD", "tIM", "tII", "tDM", "tDD")
+
+
+def hmm_profile_from_numpy(name: str, arrays: dict,
+                           desc: str = "") -> HMMProfile:
+    """{match (m, 21), tMM ... tDD (m,)} float32 arrays -> HMMProfile."""
+    return HMMProfile(name=name, desc=desc, **{
+        f: np.asarray(arrays[f], np.float32) for f in HMM_FIELDS})
+
+
+def hmm_profile_to_numpy(profile) -> dict:
+    """An HMMProfile of either package -> {match, tMM ... tDD} float32
+    arrays."""
+    return {f: np.asarray(getattr(profile, f), np.float32)
+            for f in HMM_FIELDS}
+
+
+def long_read_alignments_to_numpy(alignments) -> dict:
+    """Long-read alignments of either package -> integer arrays: each
+    chained hit's read, edge, read and edge intervals and votes, in
+    chain order, and each read's chain length."""
+    cols = {name: [] for name in ("read_id", "edge", "read_lo", "read_hi",
+                                  "edge_lo", "edge_hi", "votes")}
+    for al in alignments:
+        for h in al.chain:
+            cols["read_id"].append(al.read_id)
+            for name in ("edge", "read_lo", "read_hi", "edge_lo",
+                         "edge_hi", "votes"):
+                cols[name].append(getattr(h, name))
+    out = {name: np.asarray(v, np.int64) for name, v in cols.items()}
+    out["chain_len"] = np.asarray([len(al.chain) for al in alignments],
+                                  np.int64)
+    return out

@@ -84,6 +84,12 @@ def revcomp_str(seq: str) -> str:
     return seq.translate(_RC_TABLE)[::-1]
 
 
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse-complement of one host code row; INVALID stays INVALID
+    (and moves to the front with the rest)."""
+    return np.where(codes >= INVALID_CODE, codes, 3 - codes)[::-1]
+
+
 def complement_codes(codes: torch.Tensor) -> torch.Tensor:
     """Complement 2-bit codes; INVALID stays INVALID."""
     return torch.where(codes >= INVALID_CODE, codes, 3 - codes)

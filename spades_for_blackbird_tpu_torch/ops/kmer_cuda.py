@@ -31,40 +31,24 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
 from . import dna, kmer
+from .cuda_build import CudaLibrary
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "kmer_extract.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_K = 8 * dna.BASES_PER_WORD  # 128: the k=127 rung's (k+1)-mers
 MAX_L = 4096  # 16 reads of a tile, staged twice and packed, fit a block
 
 
-def find_nvcc() -> str:
-    """Path of ``nvcc``: $CUDA_HOME/bin, then $PATH, then /usr/local/cuda."""
-    candidates = []
-    if os.environ.get("CUDA_HOME"):
-        candidates.append(
-            os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(on_path)
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA k-mer kernel cannot be built")
+def _declare(lib) -> None:
+    lib.sfb_kmer_extract.restype = ctypes.c_int
+    lib.sfb_kmer_extract.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.sfb_error_string.restype = ctypes.c_char_p
+    lib.sfb_error_string.argtypes = [ctypes.c_int]
 
 
 class KmerExtractKernel:
@@ -74,53 +58,13 @@ class KmerExtractKernel:
     otherwise. ``canonical_keys`` is the entry with the strand column.
 
     ``launches`` counts kernel launches of both entries, in ``launch``
-    (CPU calls do not count).
-    ``build_seconds`` and ``ptxas_log`` describe the last build.
+    (CPU calls do not count). ``library`` builds and loads
+    ``csrc/kmer_extract.cu`` (``ops/cuda_build.py``).
     """
 
     def __init__(self):
         self.launches = 0
-        self.build_seconds = 0.0
-        self.ptxas_log = ""
-        self._lib = None
-
-    def library_path(self) -> str:
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-        return os.path.join(BUILD_DIR,
-                            f"libkmer_extract_{digest.hexdigest()[:12]}.so")
-
-    def build(self) -> str:
-        """Compile the kernel unless this source's library exists."""
-        so = self.library_path()
-        if os.path.exists(so):
-            return so
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.ptxas_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:"
-                               f"\n{self.ptxas_log}")
-        os.replace(tmp, so)
-        return so
-
-    def _load(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(self.build())
-            lib.sfb_kmer_extract.restype = ctypes.c_int
-            lib.sfb_kmer_extract.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p]
-            lib.sfb_error_string.restype = ctypes.c_char_p
-            lib.sfb_error_string.argtypes = [ctypes.c_int]
-            self._lib = lib
-        return self._lib
+        self.library = CudaLibrary("kmer_extract.cu", _declare)
 
     def __call__(self, codes: torch.Tensor, lengths: torch.Tensor, k: int):
         if codes.device.type == "cpu":
@@ -177,7 +121,7 @@ class KmerExtractKernel:
         given, the strand bytes into it ((R*P,) uint8). ``_run`` checks
         the inputs and allocates the outputs before it comes here."""
         R, L = codes.shape
-        lib = self._load()
+        lib = self.library.load()
         with torch.cuda.device(codes.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.sfb_kmer_extract(

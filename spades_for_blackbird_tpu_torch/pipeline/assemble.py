@@ -29,7 +29,7 @@ from ..graph.graph import compact_graph
 from ..graph.host import host_view
 from ..io import fasta
 from ..kmers import counter, coverage_model, early_tips, extension
-from ..mapping import chunked, mapper
+from ..mapping import chunked, long_read, mapper
 from ..mapping import index as eidx
 from ..models import bio
 from ..ops import dna
@@ -309,13 +309,14 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
     on ``device`` (``resolve_device``: the card unless ``"cpu"`` is asked
     for; the graph and reads are moved there); split-path filling, path
     extension, loop traversal, scaffolding and polishing run on the host,
-    on one copy of the graph. ``long_reads`` (the hybrid branch) is not
-    ported yet.
+    on one copy of the graph. ``long_reads`` ((codes, lengths), the
+    hybrid branch) are aligned to the graph (``long_read.align_long_reads``)
+    and their edge paths of two edges or more guide extension first (the
+    LongReadsExtensionChooser, extenders_logic.cpp:469). Scaffolding
+    takes its gap thresholds from the paired libraries alone: the JAX
+    package reads the long-read library's insert size there, which it
+    has not, and raises (ROADMAP.md, Queue 3).
     """
-    if long_reads is not None:
-        raise NotImplementedError(
-            "repeat_resolution_multi(long_reads=...) is not ported to "
-            "PyTorch yet (ROADMAP.md, Queue 1, item 11)")
     device = resolve_device(device, g.seq_flat)
     g = g.to(device)
     k = g.k
@@ -393,6 +394,19 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
         clustered_all.append(clustered)
     del idx
 
+    if long_reads is not None:
+        # long reads guide extension too (the aligned PathStorage of
+        # the hybrid stages; extenders_logic.cpp:469 adds long-read
+        # extenders before the paired ones)
+        lc, ll = long_reads
+        with _scope("rr_align_long_reads", device):
+            alns = long_read.align_long_reads(g, lc, ll, device=device)
+        lr_paths = [(a.edge_path, 1.0) for a in alns
+                    if len(a.edge_path) >= 2]
+        if lr_paths:
+            specs.append(resolver.LibSpec(
+                None, kind="long", read_paths=lr_paths))
+
     if not specs:
         rows = fasta.graph_contigs(g, min_length=2 * k, with_edges=True)
         contigs = [(s, c) for s, c, _ in rows]
@@ -412,12 +426,18 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
         paths_out["contigs"] = [p for _, _, p in crows]
     if not with_scaffolds:
         return contigs
+    paired = [s for s in specs if s.kind != "long"]
+    if not paired:  # long reads alone: no pair evidence to scaffold with
+        if paths_out is not None:
+            paths_out["scaffolds"] = [[(e, 0) for e in p]
+                                      for p in paths_out["contigs"]]
+        return contigs, contigs
     merged = pair_info.merge_paired_indices(clustered_all)
     # gap-analysis thresholds scale with the (largest) library IS
     # variation (extenders_logic.cpp:105-107 MakeGapAnalyzer)
     sparams = scaffolder.ScaffoldParams(
-        is_variation=max(float(s.is_stats.deviation) for s in specs),
-        read_length=max(s.read_length for s in specs))
+        is_variation=max(float(s.is_stats.deviation) for s in paired),
+        read_length=max(s.read_length for s in paired))
     with _scope("rr_scaffold", device):
         chains = scaffolder.scaffold_paths(hv, ps, merged, params=sparams,
                                            forced_joins=loop_joins,

@@ -39,10 +39,6 @@ from ..utils.device import resolve_device
 from ..utils.timetrace import device_scope
 
 
-def _revcomp_codes(codes: np.ndarray) -> np.ndarray:
-    return np.where(codes >= dna.INVALID_CODE, codes, 3 - codes)[::-1]
-
-
 def _support_pairs(m1, m2, is_dead_end, is_dead_start, E: int) -> dict:
     """{(dead end, dead start): number of pairs} over the mate pairs
     mapped to two different edges of that kind, in ascending key order.
@@ -167,7 +163,7 @@ def close_gaps(g: Graph, codes1, lengths1, codes2, lengths2,
         seqs[e1] = merged
         # conjugate join mirrors: conj(e2) + conj(e1)
         ce1, ce2 = int(conj[e1]), int(conj[e2])
-        seqs[ce1] = _revcomp_codes(merged)
+        seqs[ce1] = dna.revcomp_codes(merged)
         w1, w2 = max(lens[e1] - k, 1), max(lens[e2] - k, 1)
         covs[e1] = covs[ce1] = (covs[e1] * w1 + covs[e2] * w2) / (w1 + w2)
         new_end_v[e1] = end_v[e2]

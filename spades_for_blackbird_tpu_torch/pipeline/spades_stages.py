@@ -6,18 +6,22 @@ ReadConversion -> [ErrorCorrection] -> one iteration stage per K
 (Construction + GenomicInfoFiller + Simplification fused) ->
 [GapClosing] -> RepeatResolution -> ContigOutput.
 
-Ported: read conversion, error correction (BayesHammer, or IonHammer
-with --iontorrent), the iteration stages or, with --assembly-graph,
-loading the graph from a GFA file, rna's strand split (--ss), gap
-closing, mismatch correction (--careful), plasmidSPAdes' chromosome
-removal (--plasmid, --metaplasmid, --metaviral), repeat resolution
-(paired libraries through exSPAnder path extension and scaffolding;
-without one the contigs pass through), meta's second phase and second
-repeat resolution, and contig output with the circular and linear
-candidates. The stages of hybrid long-read input, the HMM modes and the
-series analysis still take their places under their names, as stages
-that raise ``NotImplementedError`` (``_unported``); ``cli.main`` reads
-their ``unported`` field before it runs anything.
+Every stage of the JAX package's list is here: read conversion, error
+correction (BayesHammer, or IonHammer with --iontorrent), the iteration
+stages or, with --assembly-graph, loading the graph from a GFA file,
+rna's strand split (--ss), gap closing, the two hybrid long-read stages
+(--pacbio, --nanopore, --sanger), mismatch correction (--careful),
+plasmidSPAdes' chromosome removal (--plasmid, --metaplasmid,
+--metaviral), the series analysis (--series-analysis), repeat resolution
+(paired libraries through exSPAnder path extension and scaffolding, long
+reads guiding the extension; without a paired library the contigs pass
+through), the domain extraction of the HMM modes (--bio, --corona with
+--custom-hmms), meta's second phase and second repeat resolution, contig
+output with the circular and linear candidates, and the domain graph.
+The long reads are not kept in the context: each stage that needs them
+reads the files of the command line again, so a run resumes from any
+save (the JAX package keeps them in ``ctx.params``, which its saves
+cannot write: ROADMAP.md, Queue 3).
 """
 
 from __future__ import annotations
@@ -32,24 +36,16 @@ from ..graph.from_gfa import graph_from_gfa
 from ..graph.graph import edge_mask
 from ..hammer import correct as hammer_correct
 from ..hammer import ionhammer
-from ..io import fasta, fastg, fastq, gfa
-from ..models import plasmid, rna
+from ..io import fasta, fastg, fastq, gfa, hmmfile
+from ..mapping import long_read
+from ..models import bio, plasmid, rna
+from ..mts import abundance
 from ..ops import dna
 from ..utils.device import resolve_device
 from ..utils.timetrace import device_scope
 from . import assemble, gap_closer, mismatch_correction
 from .config import AssemblyConfig
 from .stages import PipelineContext, Stage
-
-
-def _unported(name: str, queue_item: str) -> Stage:
-    """Placeholder for a stage whose module is not ported yet."""
-    what = (f"stage '{name}' is not ported to PyTorch yet (ROADMAP.md, "
-            f"Queue 1, {queue_item})")
-
-    def run(ctx: PipelineContext):
-        raise NotImplementedError(what)
-    return Stage(name, run, unported=what)
 
 
 def _rc_batch(b):
@@ -404,11 +400,141 @@ def make_mismatch_correction(log, device=None):
     return Stage("mismatch_correction", run)
 
 
-def make_repeat_resolution(log, output_dir=None, device=None):
+def _long_read_batch(files):
+    """The long reads of the command line's files as one batch."""
+    return fastq.concat_batches([fastq.load_reads(p) for p in files])
+
+
+def make_hybrid_aligning(long_read_files, log, name="hybrid_aligning",
+                         device=None):
+    """HybridLibrariesAligning (projects/spades/hybrid_aligning.cpp):
+    dead-end edge pairs bridged by long reads are joined
+    (``long_read.hybrid_close_gaps``). ``device``: by default the card
+    the context's reads are on, else the first card; the CPU only on
+    request."""
+    def run(ctx: PipelineContext):
+        if ctx.graph is None:
+            return
+        b = _long_read_batch(long_read_files)
+        dev = resolve_device(device, ctx.codes)
+        with device_scope(name, dev):
+            g, joined = long_read.hybrid_close_gaps(
+                ctx.graph, b.codes, b.lengths, device=dev)
+        ctx.graph = g
+        if joined:
+            ctx.contigs = fasta.graph_contigs(g, min_length=2 * g.k)
+        log(f"hybrid gap closing: {joined} joins from "
+            f"{b.num_reads} long reads")
+    return Stage(name, run)
+
+
+def _contig_seqs(ctx: PipelineContext) -> list[str]:
+    return [s for s, _ in (ctx.final_contigs or ctx.contigs)]
+
+
+def make_extract_domains(hmm_set: str, output_dir: str, log, device=None):
+    """ExtractDomains (projects/spades/extract_domains.cpp): match the
+    HMM set against the preliminary contigs, write
+    temp_anti/restricted_edges.fasta and keep the hit sequences for the
+    second phase's restricted-edge protection."""
+    def run(ctx: PipelineContext):
+        contig_seqs = _contig_seqs(ctx)
+        profiles = hmmfile.load_hmm_set(hmm_set)
+        dev = resolve_device(device, ctx.codes)
+        with device_scope("extract_domains", dev):
+            hits = bio.extract_domains(contig_seqs, profiles,
+                                       output_dir=output_dir, device=dev)
+        ctx.params["restricted_seqs"] = [h.seq for h in hits]
+        log(f"extracted {len(hits)} domain hits from "
+            f"{len(profiles)} models over {len(contig_seqs)} contigs")
+    return Stage("extract_domains", run)
+
+
+def make_domain_graph_construction(hmm_set: str, output_dir: str, log,
+                                   device=None):
+    """DomainGraphConstruction
+    (projects/spades/domain_graph_construction.cpp): re-match the final
+    contigs, build the domain graph and write the BGC candidates
+    (gene_clusters.fasta, bgc_statistics.txt, domain_graph.dot)."""
+    def run(ctx: PipelineContext):
+        contig_seqs = _contig_seqs(ctx)
+        profiles = hmmfile.load_hmm_set(hmm_set)
+        dev = resolve_device(device, ctx.codes)
+        with device_scope("domain_graph", dev):
+            hits = bio.extract_domains(contig_seqs, profiles, device=dev)
+        arcs = bio.build_domain_graph(hits)
+        chains = bio.bgc_candidates(hits, arcs)
+        n = bio.write_bgc_outputs(output_dir, contig_seqs, hits, chains)
+        log(f"domain graph: {len(hits)} hits, {len(arcs)} arcs, "
+            f"{n} BGC candidates")
+    return Stage("domain_graph_construction", run)
+
+
+def _parse_series_cfg(path: str) -> dict:
+    """The flat ``key: value`` lines of the series analysis' YAML file."""
+    cfg = {}
+    with open(path) as f:
+        for line in f:
+            line = line.split("#")[0].strip()
+            if ":" in line:
+                key, val = line.split(":", 1)
+                cfg[key.strip()] = val.strip().strip('"')
+    return cfg
+
+
+def make_series_analysis(yaml_path: str, log, device=None):
+    """SeriesAnalysis (projects/spades/series_analysis.cpp): load a
+    multi-sample k-mer multiplicity table, profile the graph's edges and
+    their fragments, and write edges_sqn / edges_mpl /
+    edge_fragments_mpl for the mts binner. Every edge's fragments are
+    profiled in one search of the table."""
+    def run(ctx: PipelineContext):
+        if ctx.graph is None:
+            return
+        cfg = _parse_series_cfg(yaml_path)
+        kmers, mult, k = abundance.load_profiles(cfg["kmer_mult"])
+        min_len = int(cfg.get("min_len", 0))
+        frag_size = int(cfg.get("frag_size", 200))
+        seqs = []
+        names = []
+        for i, (s, cov) in enumerate(
+                fasta.graph_contigs(ctx.graph, min_length=min_len)):
+            seqs.append(s)
+            names.append(f"EDGE_{i + 1}_length_{len(s)}_cov_{cov:.6f}")
+        dev = resolve_device(device, ctx.codes)
+        frags = [abundance.fragments(s, k, frag_size) for s in seqs]
+        with device_scope("series_analysis", dev):
+            prof = abundance.contig_abundance(seqs, kmers, mult, k,
+                                              device=dev)
+            frag_prof = abundance.contig_abundance(
+                [f for fs in frags for f in fs], kmers, mult, k,
+                device=dev)
+        with open(cfg["edges_sqn"], "w") as f:
+            for n, s in zip(names, seqs):
+                f.write(f">{n}\n{s}\n")
+        with open(cfg["edges_mpl"], "w") as f:
+            for n, row in zip(names, prof):
+                f.write(n + "\t" + "\t".join(f"{v:.2f}" for v in row)
+                        + "\n")
+        with open(cfg["edge_fragments_mpl"], "w") as f:
+            at = 0
+            for n, fs in zip(names, frags):
+                for j, row in enumerate(frag_prof[at:at + len(fs)]):
+                    f.write(f"{n}_f{j}\t" + "\t".join(
+                        f"{v:.2f}" for v in row) + "\n")
+                at += len(fs)
+        log(f"series analysis: profiled {len(seqs)} edges over "
+            f"{mult.shape[1]} samples")
+    return Stage("series_analysis", run)
+
+
+def make_repeat_resolution(log, output_dir=None, device=None,
+                           long_read_files=()):
     """RepeatResolution (projects/spades/repeat_resolving.cpp): without
     a paired library the contigs pass through; with one,
-    ``assemble.repeat_resolution_multi`` over each library, and the
-    paths, scaffold graph and library data it reports are written."""
+    ``assemble.repeat_resolution_multi`` over each library (and the long
+    reads of ``long_read_files``, read again here), and the paths,
+    scaffold graph and library data it reports are written."""
     def run(ctx: PipelineContext):
         if not ctx.paired_ranges or ctx.graph is None:
             ctx.final_contigs = list(ctx.contigs)
@@ -420,9 +546,14 @@ def make_repeat_resolution(log, output_dir=None, device=None):
         lib_data: list = []
         sg_out: dict = {}
         paths_out: dict = {}
+        long_reads = None
+        if long_read_files:
+            b = _long_read_batch(long_read_files)
+            long_reads = (b.codes, b.lengths)
         final, scaffolds = assemble.repeat_resolution_multi(
             ctx.graph, libs, with_scaffolds=True, lib_data_out=lib_data,
-            scaffold_graph_out=sg_out, paths_out=paths_out, device=dev)
+            scaffold_graph_out=sg_out, long_reads=long_reads,
+            paths_out=paths_out, device=dev)
         # edge-id paths feed contigs.paths/scaffolds.paths + GFA P
         # records at contig output (contig_output_stage.cpp:105-112)
         ctx.params["contig_paths"] = [
@@ -568,8 +699,12 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
     if long_reads:
         # the reference runs HybridLibrariesAligning twice
         # (pipeline.cpp:271-274)
-        stages.append(_unported("hybrid_aligning", "item 7"))
-        stages.append(_unported("hybrid_aligning_2", "item 7"))
+        # once before and once after pair-based cleanup, so second-round
+        # joins see the improved graph
+        stages.append(make_hybrid_aligning(long_reads, log, device=device))
+        stages.append(make_hybrid_aligning(long_reads, log,
+                                           name="hybrid_aligning_2",
+                                           device=device))
     if cfg.careful or getattr(args, "careful", False):
         stages.append(make_mismatch_correction(log, device=device))
     if cfg.chromosome_removal:
@@ -577,11 +712,13 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
                                               output_dir=args.output_dir))
     if getattr(args, "series_analysis", None):
         # before RR (pipeline.cpp:205-206)
-        stages.append(_unported("series_analysis", "item 8"))
+        stages.append(make_series_analysis(args.series_analysis, log,
+                                           device=device))
 
     def repeat_resolution(name):
         return dataclasses.replace(
-            make_repeat_resolution(log, args.output_dir, device=device),
+            make_repeat_resolution(log, args.output_dir, device=device,
+                                   long_read_files=long_reads),
             name=name)
 
     stages.append(repeat_resolution("repeat_resolution"))
@@ -590,7 +727,8 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
         if hmm_set:
             # ExtractDomains on the preliminary contigs
             # (pipeline.cpp:145-146)
-            stages.append(_unported("extract_domains", "item 8"))
+            stages.append(make_extract_domains(
+                hmm_set, args.output_dir, log, device=device))
         # meta: SecondPhaseSetup re-feeds the preliminary RR contigs into
         # a final iteration + RR, restricted edges protected
         stages.append(make_second_phase(ks, log, device=device))
@@ -598,5 +736,6 @@ def build_stage_list(args, ks, log, cfg=None, device=None):
     stages.append(make_contig_output(args.output_dir, log, cfg))
     if hmm_set:
         # DomainGraphConstruction last (pipeline.cpp:285-286)
-        stages.append(_unported("domain_graph_construction", "item 8"))
+        stages.append(make_domain_graph_construction(
+            hmm_set, args.output_dir, log, device=device))
     return stages

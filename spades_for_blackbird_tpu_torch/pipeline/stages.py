@@ -122,12 +122,9 @@ class PipelineContext:
 
 @dataclass
 class Stage:
-    """An assembly stage (stage.hpp:24 AssemblyStage). ``unported`` names
-    what is missing where the stage's module is not ported yet: such a
-    stage holds its place in the list and raises when run."""
+    """An assembly stage (stage.hpp:24 AssemblyStage)."""
     name: str
     fn: Callable[[PipelineContext], None]
-    unported: str | None = None
 
 
 @dataclass

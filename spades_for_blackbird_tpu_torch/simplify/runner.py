@@ -140,7 +140,7 @@ def check_ported(cfg: SimplifyConfig) -> None:
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"SimplifyConfig.{name}: the {what} is not ported to "
-                f"PyTorch (ROADMAP.md, Queue 1, item 8)")
+                f"PyTorch (ROADMAP.md, Queue 1, item 9)")
 
 
 def _tip_length(k: int, read_length: int, lb: float) -> int:

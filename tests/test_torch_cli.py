@@ -242,6 +242,32 @@ def test_paired_input_runs_as_far_as_the_port_goes(tmp_path,
         dna.decode_codes(first))
 
 
+@pytest.fixture(scope="module")
+def mode_files(small, tmp_path_factory):
+    """What the HMM and series requests name: a .hmm file of two domain
+    profiles, and a series configuration over a two-sample profile of
+    ``small``'s reads."""
+    from spades_for_blackbird_tpu_torch.io import hmmfile
+    from spades_for_blackbird_tpu_torch.mts import abundance
+    from spades_for_blackbird_tpu_torch.ops import aa, hmm
+    root = tmp_path_factory.mktemp("mode_files")
+    hmm_path = str(root / "models.hmm")
+    hmmfile.write_hmm_file(hmm_path, [
+        hmm.hmm_from_consensus(f"d{i}", aa.encode_aa(m)) for i, m in
+        enumerate(("MAGICHEMISTRYWKDNVFQ", "PLANTEDDQMAINKWYRSTV"))])
+    b = fastq.load_reads(small)
+    abundance.save_profiles(str(root / "prof.npz"), *abundance.
+                            multiplicity_profiles(
+                                [(b.codes, b.lengths),
+                                 (b.codes[::2], b.lengths[::2])], 21,
+                                device="cpu"), 21)
+    yaml = root / "series.yaml"
+    yaml.write_text(f"kmer_mult: {root}/prof.npz\n" + "".join(
+        f"{key}: {root}/{key}.out\n"
+        for key in ("edges_sqn", "edges_mpl", "edge_fragments_mpl")))
+    return {"--custom-hmms": hmm_path, "--series-analysis": str(yaml)}
+
+
 @pytest.mark.parametrize("extra,needle", [
     (["-1", "READS", "-2", "READS", "--meta", "--nanopore", "READS"],
      "hybrid_aligning"),
@@ -255,15 +281,23 @@ def test_paired_input_runs_as_far_as_the_port_goes(tmp_path,
     (["--only-assembler", "--pacbio", "READS"], "hybrid_aligning"),
     (["--plasmid", "--pacbio", "READS"], "hybrid_aligning_2"),
 ])
-def test_unported_requests_exit_2_before_any_work(small, tmp_path, capsys,
-                                                  extra, needle,
+def test_unported_requests_exit_2_before_any_work(small, mode_files,
+                                                  tmp_path, extra, needle,
                                                   logger_untouched):
+    """The eight requests the port refused until its hybrid, HMM and
+    series stages came (long reads, the HMM modes, the series analysis,
+    alone and with the meta and plasmid modes) now run to the end, each
+    through the stage it lacked (``FILE`` is what the flag before it
+    names: an HMM set or a series configuration)."""
     out = tmp_path / "out"
-    extra = [small if x in ("READS", "FILE") else x for x in extra]
-    assert cli.main(["-s", small, "-o", str(out)] + extra + CPU) == 2
-    assert needle in capsys.readouterr().err
-    assert not (out / "saves").exists()
-    assert "STAGE" not in (out / "spades.log").read_text()
+    extra = [small if x == "READS" else
+             mode_files[extra[i - 1]] if x == "FILE" else x
+             for i, x in enumerate(extra)]
+    assert cli.main(["-s", small, "-o", str(out), "--checkpoints", "none"]
+                    + extra + CPU) == 0
+    log = (out / "spades.log").read_text()
+    assert f"== STAGE {needle} done" in log
+    assert (out / "contigs.fasta").exists()
 
 
 def test_mode_wrappers_and_mode_table(small, tmp_path, logger_untouched):

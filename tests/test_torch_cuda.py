@@ -1,9 +1,10 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written
-k-mer extraction kernel (both entries) against its plain PyTorch
-version, and the K ladder, the error corrector, the read mapper, the
-paired index, the gap closer, repeat resolution, mismatch correction,
-restricted edges, GFA input and single-cell simplification on the card
-against the CPU. They skip without a card. This file imports no JAX, so on a machine with the card
+k-mer extraction kernel (both entries), the banded edit distance and the
+Viterbi kernels against their plain PyTorch versions, and the K ladder,
+the error corrector, the read mapper, the paired index, the gap closer,
+repeat resolution, mismatch correction, restricted edges, GFA input and
+single-cell simplification on the card against the CPU. They skip
+without a card. This file imports no JAX, so on a machine with the card
 and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -427,3 +428,53 @@ def test_sc_assembly_card_equals_cpu(card):
     assert [s for s, _ in out["cuda"][1]] == [s for s, _ in out["cpu"][1]]
     np.testing.assert_allclose([c for _, c in out["cuda"][1]],
                                [c for _, c in out["cpu"][1]], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [4, 48])
+def test_banded_ed_kernel_equals_plain(card, band):
+    """The hand kernel csrc/banded_ed.cu bit-equal to its plain version:
+    similar and unrelated pairs, lengths 0 and 1, length differences in
+    and past the band."""
+    from spades_for_blackbird_tpu_torch.ops import align
+    rng = np.random.default_rng(band)
+    B, L = 40, 700
+    a = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    b = np.where(rng.random((B, L)) < 0.1, rng.integers(0, 5, (B, L)),
+                 a).astype(np.uint8)
+    a_len = rng.integers(0, L + 1, B).astype(np.int32)
+    b_len = np.clip(a_len + rng.integers(-2 * band, 2 * band + 1, B), 0,
+                    L).astype(np.int32)
+    a_len[:2], b_len[:2] = (0, 1), (1, 0)
+    kernel = align.BandedEditDistanceKernel()
+    args = [torch.from_numpy(x).to(card) for x in (a, a_len, b, b_len)]
+    got = kernel(*args, band)
+    want = align.banded_edit_distance_plain(*args, band)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [37, 1100])
+def test_viterbi_kernel_equals_plain(card, m):
+    """The hand kernel csrc/viterbi.cu bit-equal to its plain version at
+    every position within a row's length (one node a thread, and two)."""
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    rng = np.random.default_rng(m)
+    cons = rng.integers(0, 20, m)
+    B, L = 6, 2 * m + 50
+    seqs = rng.integers(0, 21, (B, L)).astype(np.uint8)
+    seqs[:, 20:20 + m] = cons
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[:2] = (0, L)
+    kernel = hmm.ViterbiKernel()
+    args = hmm.profile_tensors(hmm.hmm_from_consensus("c", cons), card)
+    s, ln = (torch.from_numpy(x).to(card) for x in (seqs, lengths))
+    es, st = kernel(*args, s, ln, m)
+    pes, pst = hmm.viterbi_ends_plain(*args, s, ln, m)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    inside = torch.arange(L, device=card)[None, :] < ln[:, None]
+    assert torch.equal(torch.where(inside, es, 0), torch.where(inside, pes, 0))
+    assert torch.equal(torch.where(inside, st, 0), torch.where(inside, pst, 0))

@@ -135,6 +135,9 @@ def test_without_a_card_repeat_resolution_refuses(graphs):
     with pytest.raises(RuntimeError, match="CUDA card"):
         assemble.repeat_resolution_multi(
             g, [_arrays(*_library(10, 300, 57), "pe")])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        assemble.repeat_resolution_multi(g, [], long_reads=([], []),
-                                         device="cpu")
+    # the long-read branch runs where it is asked to: with no library
+    # and no long read, the contigs pass through as without it
+    no_reads = (np.zeros((0, 1), np.uint8), np.zeros(0, np.int32))
+    assert assemble.repeat_resolution_multi(
+        g, [], long_reads=no_reads, device="cpu") == \
+        assemble.repeat_resolution_multi(g, [], device="cpu")
