@@ -36,10 +36,15 @@ prints no result):
    overlap by k bases, the last one ragged); then the two hand kernels
    with no TPU counterpart against their plain versions: ``banded_ed``
    at the hybrid stages' shapes (B = 1-8, L up to 2,000, band 48) and
-   ragged ones (lengths 0 and 1, a length difference past the band),
-   bit-equal; ``viterbi`` at profile lengths 120, 300 and 1,100 (two
-   nodes a thread), bit-equal at every position within a row's length;
-   both bare launches timed beside their bound and the plain versions;
+   ragged ones (lengths 0 and 1, a length difference past the band), and
+   ragged pairs at bands 0, 1, 15, 16 and 511 (one to 32 slots a lane),
+   bit-equal; ``viterbi`` at profile lengths 120, 300 and 512 (the warp
+   path) and 1,100 and 2,048 (the block path, one and two nodes a
+   thread), bit-equal at every position within a row's length, and
+   batched: 12 profiles of 135-294 nodes over 12 ragged rows of up to
+   3,000 positions in one call, bit-equal everywhere to the plain
+   batched version on the rows cut to 400 positions; the bare launches
+   timed beside their bound and the plain versions;
 3. ``assemble_single_k`` at k=21 on a 20 kb simulated genome on the card
    and on the CPU: identical canonical contigs, coverages within
    rtol 1e-4 (float32 sums run in another order on the card); the
@@ -218,10 +223,13 @@ prints no result):
    ``-1/-2 --bio --custom-hmms`` with the 12 profiles
    (``hmm_from_consensus``, written with ``write_hmm_file``): return 0,
    every cluster in ``gene_clusters.fasta`` with its domains in order;
-   then the Viterbi kernel on the run's own rows (six frames of every
-   contig) held against its plain version on each row cut to its first
-   4,000 positions for the shortest and the longest profile, and timed
-   alone on the full rows;
+   one ``viterbi`` launch in each HMM stage (``extract_domains`` and
+   ``domain_graph_construction``); then the batched launch of all 12
+   profiles on the run's own rows (six frames of every contig, ragged)
+   held against the plain version of the shortest and the longest
+   profile on each row cut to its first 4,000 positions, and timed on
+   the full rows, beside the longest row alone; one profile on the
+   padded rows timed as before;
    (c) three samples of phase 12's four genomes at their coverages
    rotated a step a sample: their profile counted on the card and saved
    in the JAX package's ``.npz``, then ``-1/-2 --only-assembler -k 55
@@ -1183,12 +1191,14 @@ def plain_extraction_refused():
         "extract_kmers", "extract_canonical_kmers", "extract_sort_keys",
         "extract_canonical_keys")]
     guards += [(align, "banded_edit_distance_plain"),
-               (hmm, "viterbi_ends_plain")]
+               (hmm, "viterbi_ends_plain"), (hmm, "viterbi_batched_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in guards]
 
     def guarded(name, fn):
         def call(first, *args, **kwargs):
-            rows = args[7] if name == "viterbi_ends_plain" else first
+            rows = {"viterbi_ends_plain": lambda: args[7],
+                    "viterbi_batched_plain": lambda: args[0]}.get(
+                name, lambda: first)()
             if rows.is_cuda:
                 raise AssertionError(f"plain {name} was called with a "
                                      f"tensor on the card")
@@ -2605,6 +2615,10 @@ VITERBI_NODE_OPS = 20    # float32 adds, compares and selects a node a
 #                          position (the four-way max, the insert, the
 #                          delete chain and its scan, the exit)
 VITERBI_PLAIN_CUT = 4000  # positions of each row the plain version runs
+ED_BANDS = (0, 1, 15, 16, 48, 511)  # phase 2: one to 32 slots a lane
+VITERBI_BATCH_M = (135, 294)  # phase 2: the batched shape's profile
+#                               lengths, those of phase 15 (b)'s profiles
+VITERBI_BATCH_CUT = 400  # phase 2: positions the plain batched call runs
 HYBRID_HOLES = 24        # phase 15 (a): holes in the short reads
 HOLE_LEN = (400, 1000)
 LONG_COVERAGE = 5.0
@@ -2654,18 +2668,96 @@ def ed_bound(a_len, b_len, L: int, band: int):
                                    else "bytes")
 
 
-def viterbi_bound(lengths, L: int, m: int):
-    """(bound ms, what bounds it) of one Viterbi launch: the (position,
-    node) steps of the rows' own lengths at VITERBI_NODE_OPS float32
-    operations, against the rows, lengths and profile read once and the
-    end scores and starts written once."""
-    B = len(lengths)
-    steps = int(np.minimum(lengths, L).sum()) * m
+def viterbi_bound(lengths, ms, width=None):
+    """(bound ms, what bounds it) of one Viterbi call of the profiles of
+    lengths ``ms`` over rows of ``lengths``: the (position, node) steps
+    at VITERBI_NODE_OPS float32 operations, against the rows (padded to
+    ``width`` if given), their lengths and offsets and the profiles read
+    once and the end scores and starts written once."""
+    ms = np.atleast_1d(ms)
+    lengths = np.asarray(lengths, np.int64)
+    positions = len(lengths) * width if width else int(lengths.sum())
+    steps = int(np.minimum(lengths, width or lengths.max(initial=0)).sum()) \
+        * int(ms.sum())
     ops_ms = steps * VITERBI_NODE_OPS / FP32_OPS_PER_S * 1e3
-    moved = B * L + 4 * B + 4 * 28 * m + 8 * B * L
+    moved = positions + 12 * len(lengths) + 4 * 28 * int(ms.sum()) \
+        + 8 * len(ms) * positions
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+def ragged_rows(seqs, lengths, cut=None):
+    """Padded rows (cut to their first ``cut`` positions) as one ragged
+    buffer: (residues (N,) uint8, offsets (B,) int64, lengths (B,)
+    int32)."""
+    lengths = np.minimum(lengths, cut) if cut else np.asarray(lengths)
+    flat = np.concatenate([seqs[b, :n] for b, n in enumerate(lengths)]
+                          + [np.zeros(0, np.uint8)]).astype(np.uint8)
+    lengths = lengths.astype(np.int64)
+    return flat, np.cumsum(lengths) - lengths, lengths.astype(np.int32)
+
+
+def viterbi_batch_vs_plain(device, profiles, flat, offsets, lengths,
+                           compare) -> dict:
+    """The batched kernel, every profile in one call, against the plain
+    batched version of the profiles ``compare`` (indices) on the same
+    ragged rows: raises unless end scores (their bits) and starts are
+    equal everywhere. Returns the largest score difference (0.0) and
+    the kernel's and the plain call's ms on these rows."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    pack = hmm.pack_profiles(profiles, device)
+    sub = hmm.pack_profiles([profiles[i] for i in compare], device)
+    s, o, ln = (torch.from_numpy(x).to(device)
+                for x in (flat, offsets, lengths))
+    es, st = hmm.viterbi_kernel.batched(pack, s, o, ln)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pes, pst = hmm.viterbi_batched_plain(sub, s, o, ln)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    idx = torch.tensor(list(compare), device=device)
+    es, st = es[idx], st[idx]
+    err = float((es - pes).abs().max()) if es.numel() else 0.0
+    if not (torch.equal(es.view(torch.int32), pes.view(torch.int32))
+            and torch.equal(st, pst)):
+        raise AssertionError(
+            f"batched viterbi kernel != plain for profiles of "
+            f"{[profiles[i].length for i in compare]} nodes over "
+            f"{len(lengths)} rows")
+    kernel_ms = cuda_ms(lambda: hmm.viterbi_kernel.batched(pack, s, o, ln),
+                        2)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def padded_as_ragged(seqs, lengths):
+    """A padded (B, L) array as ragged rows: (residues (B * L,), offsets
+    r * L, lengths), what the one-profile call hands the kernel."""
+    B, L = seqs.shape
+    return (np.ascontiguousarray(seqs).reshape(-1),
+            np.arange(B, dtype=np.int64) * L,
+            np.minimum(lengths, L).astype(np.int32))
+
+
+def viterbi_batch_launch_ms(device, profiles, flat, offsets, lengths,
+                            reps: int) -> float:
+    """CUDA-event ms of the bare batched launch (outputs allocated once)
+    of every profile over the ragged rows."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    pack = hmm.pack_profiles(profiles, device)
+    s = hmm._aligned(torch.from_numpy(flat).to(device))
+    o, ln = (torch.from_numpy(x).to(device) for x in (offsets, lengths))
+    es = torch.empty((len(profiles), len(flat)), dtype=torch.float32,
+                     device=device)
+    st = torch.empty_like(es, dtype=torch.int32)
+    order = hmm._longest_first(ln)
+    ms = cuda_ms(lambda: hmm.viterbi_kernel.launch_batched(
+        pack, s, o, ln, order, es, st), reps)
+    del es, st
+    torch.cuda.empty_cache()
+    return ms
 
 
 def ed_pairs(rng, B: int, L: int, band: int, ragged: bool):
@@ -2734,45 +2826,51 @@ def consensus_rows(rng, cons, B: int, L: int):
 def phase_new_kernels(device) -> dict:
     """Phase 2 for the hand kernels with no TPU counterpart: banded_ed
     at the hybrid stages' shapes (B = 1-8, L up to 2,000, band 48) and
-    ragged ones, bit-equal to its plain version; viterbi at profile
-    lengths 120, 300 and 1,100 (two nodes a thread), bit-equal within
-    each row's length. CUDA events time the bare launches beside the
-    bound and the plain versions."""
+    ragged ones, and ragged pairs at every slot-a-lane width (bands
+    ED_BANDS), bit-equal to its plain version; viterbi at profile lengths
+    120 and 300 (the timed shape), 512 (the warp path's largest),
+    1,100 and 2,048 (the block path), bit-equal within each row's length,
+    and the batched shape: 12 profiles of 135-294 nodes over 12 ragged
+    rows in one call, bit-equal everywhere. CUDA events time the bare
+    launches beside the bound and the plain versions."""
     import torch
     from spades_for_blackbird_tpu_torch.ops import align, hmm
     rng = np.random.default_rng(15)
     ed = align.banded_edit_distance
     ed_rows = []
-    for B, L, ragged in ((1, 2000, False), (8, 2000, False),
-                         (8, 2000, True), (5, 600, True), (3, 1, False),
-                         (2, 300, True)):
+    shapes = [(1, 2000, False, ED_BAND), (8, 2000, False, ED_BAND),
+              (8, 2000, True, ED_BAND), (5, 600, True, ED_BAND),
+              (3, 1, False, ED_BAND), (2, 300, True, ED_BAND)]
+    shapes += [(8, 600, True, band) for band in ED_BANDS if band != ED_BAND]
+    for B, L, ragged, band in shapes:
         a, al, b, bl = (torch.from_numpy(x).to(device)
-                        for x in ed_pairs(rng, B, L, ED_BAND, ragged))
-        got = ed(a, al, b, bl, ED_BAND)
-        want = align.banded_edit_distance_plain(a, al, b, bl, ED_BAND)
+                        for x in ed_pairs(rng, B, L, band, ragged))
+        got = ed(a, al, b, bl, band)
+        want = align.banded_edit_distance_plain(a, al, b, bl, band)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        row = {"B": B, "L": L, "band": ED_BAND, "ragged": ragged,
+        row = {"B": B, "L": L, "band": band, "ragged": ragged,
                "max_abs_err": err}
         if err != 0.0:
             raise AssertionError(f"banded_ed kernel != plain at {row}")
         if (B, L, ragged) == (8, 2000, False):
             out = torch.empty(B, dtype=torch.int32, device=device)
-            row["ms"] = cuda_ms(lambda: ed.launch(a, al, b, bl, ED_BAND,
+            row["ms"] = cuda_ms(lambda: ed.launch(a, al, b, bl, band,
                                                   out), 20)
             row["plain_ms"] = cuda_ms(
                 lambda: align.banded_edit_distance_plain(a, al, b, bl,
-                                                         ED_BAND), 2)
+                                                         band), 2)
             row["bound_ms"], row["bound_by"] = ed_bound(
-                al.cpu().numpy(), bl.cpu().numpy(), L, ED_BAND)
-            log(f"[kernel] banded_ed B={B} L={L} band={ED_BAND}: "
+                al.cpu().numpy(), bl.cpu().numpy(), L, band)
+            log(f"[kernel] banded_ed B={B} L={L} band={band}: "
                 f"{row['ms']:.3f} ms (bound {row['bound_ms']:.6f} ms, by "
                 f"{row['bound_by']}), plain {row['plain_ms']:.3f} ms")
-        log(f"[kernel] banded_ed B={B} L={L} ragged={ragged}: "
+        log(f"[kernel] banded_ed B={B} L={L} band={band} ragged={ragged}: "
             f"max_abs_err={err}")
         ed_rows.append(row)
     vit_rows = []
-    for m, B, L in ((120, 12, 3000), (300, 12, 3000), (1100, 4, 800)):
+    for m, B, L in ((120, 12, 3000), (300, 12, 3000), (512, 4, 800),
+                    (1100, 4, 800), (2048, 3, 600)):
         cons = rng.integers(0, 20, m).astype(np.uint8)
         profile = hmm.hmm_from_consensus(f"c{m}", cons)
         seqs, lengths = consensus_rows(rng, cons, B, L)
@@ -2782,21 +2880,42 @@ def phase_new_kernels(device) -> dict:
             args = hmm.profile_tensors(profile, device)
             s = torch.from_numpy(seqs).to(device)
             ln = torch.from_numpy(lengths).to(device)
-            matchT = args[0].t().contiguous()
-            trans = torch.stack(args[1:]).contiguous()
-            es = torch.empty((B, L), dtype=torch.float32, device=device)
-            st = torch.empty((B, L), dtype=torch.int32, device=device)
-            row["ms"] = cuda_ms(lambda: hmm.viterbi_kernel.launch(
-                matchT, trans, s, ln, m, es, st), 5)
+            row["ms"] = viterbi_batch_launch_ms(
+                device, [profile], *padded_as_ragged(seqs, lengths), 5)
             row["plain_ms"] = cuda_ms(
                 lambda: hmm.viterbi_ends_plain(*args, s, ln, m), 1)
-            row["bound_ms"], row["bound_by"] = viterbi_bound(lengths, L, m)
+            row["bound_ms"], row["bound_by"] = viterbi_bound(lengths, m, L)
             log(f"[kernel] viterbi m={m} B={B} L={L}: {row['ms']:.3f} ms "
                 f"(bound {row['bound_ms']:.6f} ms, by {row['bound_by']}), "
                 f"plain {row['plain_ms']:.3f} ms")
         log(f"[kernel] viterbi m={m} B={B} L={L}: max_abs_err={err}")
         vit_rows.append(row)
-    return {"banded_ed": ed_rows, "viterbi": vit_rows}
+    # the batched shape: every profile in one call over ragged rows
+    ms = np.linspace(*VITERBI_BATCH_M, 12).astype(int)
+    profiles = [hmm.hmm_from_consensus(f"b{m}", rng.integers(0, 20, m))
+                for m in ms]
+    seqs, lengths = consensus_rows(
+        rng, np.asarray(profiles[0].match[:, :20].argmax(1), np.uint8),
+        12, 3000)
+    cut = viterbi_batch_vs_plain(
+        device, profiles, *ragged_rows(seqs, lengths, VITERBI_BATCH_CUT),
+        compare=range(len(profiles)))
+    rows = ragged_rows(seqs, lengths)
+    batch = {"profiles": len(profiles), "m": [int(m) for m in ms],
+             "B": len(lengths), "L": int(lengths.max()),
+             "positions": int(lengths.sum()),
+             "max_abs_err": cut["max_abs_err"],
+             "ms": viterbi_batch_launch_ms(device, profiles, *rows, 5),
+             "cut": dict(cut, L=VITERBI_BATCH_CUT)}
+    batch["bound_ms"], batch["bound_by"] = viterbi_bound(lengths, ms)
+    log(f"[kernel] viterbi batched, {len(profiles)} profiles of "
+        f"{ms.min()}-{ms.max()} nodes, {len(lengths)} ragged rows (up to "
+        f"{batch['L']} positions): {batch['ms']:.3f} ms a launch (bound "
+        f"{batch['bound_ms']:.6f} ms, by {batch['bound_by']}); cut to "
+        f"{VITERBI_BATCH_CUT} positions {cut['ms']:.3f} ms, plain "
+        f"{cut['plain_ms']:.3f} ms, bit-equal for every profile")
+    return {"banded_ed": ed_rows, "viterbi": vit_rows,
+            "viterbi_batched": batch}
 
 
 def noisy_codes(rng, codes, rate: float) -> np.ndarray:
@@ -3280,60 +3399,85 @@ def phase_hybrid(device, tmp) -> dict:
     if not all(held):
         raise AssertionError(f"--bio: clusters missing from "
                              f"gene_clusters.fasta: {held} {sorted(found)}")
-    if launches["viterbi"] <= 0:
-        raise AssertionError("--bio never launched the viterbi kernel")
-    # the kernel at the run's own rows and profiles: held against the
-    # plain version on every row cut to its first VITERBI_PLAIN_CUT
-    # positions, timed alone on the full rows
+    vit_stages = {name: n.get("viterbi", 0) for name, n in by_stage.items()
+                  if n.get("viterbi")}
+    log(f"[hybrid] viterbi launches by stage: {vit_stages}")
+    if vit_stages != {"extract_domains": 1, "domain_graph_construction": 1}:
+        raise AssertionError("--bio: expected one viterbi launch in each "
+                             f"HMM stage, got {vit_stages}")
+    # the kernel at the run's own rows and profiles: the batched launch of
+    # all of them held against the plain version of the shortest and the
+    # longest profile on every row cut to its first VITERBI_PLAIN_CUT
+    # positions, then timed on the full rows; one profile alone on the
+    # padded rows, and the longest row alone (the serial chain's time)
     import torch
     from spades_for_blackbird_tpu_torch.models import bio
     contigs = [s for s, _ in read_fasta(os.path.join(out, "contigs.fasta"))]
     frames = bio._frames(contigs)
-    L = max(len(f[3]) for f in frames)
+    flat, offsets, lens64 = bio.frame_rows(frames)
+    L = int(lens64.max())
     seqs = np.full((len(frames), L), 20, np.uint8)
-    lengths = np.zeros(len(frames), np.int32)
+    lengths = lens64.astype(np.int32)
     for i, f in enumerate(frames):
         seqs[i, :len(f[3])] = f[3]
-        lengths[i] = len(f[3])
-    by_m = sorted(profiles, key=lambda p: p.length)
-    errs = [viterbi_rows_vs_plain(device, p, seqs, lengths,
-                                  cut=VITERBI_PLAIN_CUT)
-            for p in (by_m[0], by_m[-1])]
-    big = by_m[-1]
+    by_m = sorted(range(len(profiles)), key=lambda i: profiles[i].length)
+    cut = VITERBI_PLAIN_CUT
+    batch_cut = viterbi_batch_vs_plain(
+        device, profiles, *ragged_rows(seqs, lengths, cut),
+        compare=(by_m[0], by_m[-1]))
+    errs = [batch_cut["max_abs_err"]]
+    rows = (flat, offsets, lengths)
+    batch_ms = viterbi_batch_launch_ms(device, profiles, *rows, 2)
+    big = profiles[by_m[-1]]
+    longest = int(np.argmax(lengths))
+    chain_ms = viterbi_batch_launch_ms(
+        device, [big], flat[offsets[longest]:offsets[longest] + L],
+        np.zeros(1, np.int64), lengths[longest:longest + 1], 2)
+    batch_bound = viterbi_bound(lengths, [p.length for p in profiles])
+    full_ms = viterbi_batch_launch_ms(
+        device, [big], *padded_as_ragged(seqs, lengths), 2)
     args = hmm.profile_tensors(big, device)
     s = torch.from_numpy(seqs).to(device)
     ln = torch.from_numpy(lengths).to(device)
-    matchT = args[0].t().contiguous()
-    trans = torch.stack(args[1:]).contiguous()
-    es = torch.empty(s.shape, dtype=torch.float32, device=device)
-    st = torch.empty(s.shape, dtype=torch.int32, device=device)
-    full_ms = cuda_ms(lambda: hmm.viterbi_kernel.launch(
-        matchT, trans, s, ln, big.length, es, st), 2)
-    cut = VITERBI_PLAIN_CUT
     sc, lc = s[:, :cut].contiguous(), torch.clamp(ln, max=cut)
     plain_cut_ms = cuda_ms(lambda: hmm.viterbi_ends_plain(
         *args, sc, lc, big.length), 1)
     kernel_cut_ms = cuda_ms(lambda: hmm.viterbi_kernel(
         *args, sc, lc, big.length), 2)
-    bound_ms, bound_by = viterbi_bound(lengths, L, big.length)
+    bound_ms, bound_by = viterbi_bound(lengths, big.length, L)
     cut_bound_ms, cut_bound_by = viterbi_bound(np.minimum(lengths, cut),
-                                               cut, big.length)
-    del es, st, s, sc
+                                               big.length, cut)
+    del s, sc
     rec["viterbi"] = {"rows": len(frames), "m": big.length,
                       "max_abs_err": max(errs),
-                      "profiles_compared": len(errs),
+                      "profiles_compared": 2,
+                      "launches_by_stage": vit_stages,
                       "cut": {"L": cut, "ms": kernel_cut_ms,
                               "plain_ms": plain_cut_ms,
                               "bound_ms": cut_bound_ms,
                               "bound_by": cut_bound_by},
                       "full": {"L": L, "ms": full_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by}}
+                               "bound_by": bound_by},
+                      "batched": {"profiles": len(profiles),
+                                  "positions": int(lengths.sum()),
+                                  "ms": batch_ms,
+                                  "bound_ms": batch_bound[0],
+                                  "bound_by": batch_bound[1],
+                                  "chain_ms": chain_ms,
+                                  "longest_row": L,
+                                  "cut": dict(batch_cut, L=cut)}}
     log(f"[hybrid] viterbi on the run's {len(frames)} rows, m="
         f"{big.length}: cut to {cut} positions {kernel_cut_ms:.3f} ms "
         f"(bound {cut_bound_ms:.6f} ms, by {cut_bound_by}), plain "
-        f"{plain_cut_ms:.3f} ms, bit-equal for {len(errs)} profiles; full "
-        f"(longest {L} positions) {full_ms:.3f} ms a launch (bound "
-        f"{bound_ms:.6f} ms)")
+        f"{plain_cut_ms:.3f} ms, bit-equal; full (longest {L} positions) "
+        f"{full_ms:.3f} ms a launch (bound {bound_ms:.6f} ms)")
+    log(f"[hybrid] viterbi batched, {len(profiles)} profiles over the "
+        f"{len(frames)} ragged rows ({int(lengths.sum())} positions): "
+        f"{batch_ms:.3f} ms a launch (bound {batch_bound[0]:.6f} ms, by "
+        f"{batch_bound[1]}; the longest row alone {chain_ms:.3f} ms); cut "
+        f"to {cut} positions {batch_cut['ms']:.3f} ms, bit-equal to the "
+        f"plain version ({batch_cut['plain_ms']:.3f} ms) for the "
+        f"{profiles[by_m[0]].length}- and {big.length}-node profiles")
     torch.cuda.empty_cache()
     record["bio"] = rec
     shutil.rmtree(out)
@@ -3455,11 +3599,18 @@ def series_run(device, tmp) -> dict:
 def new_kernel_lines(record: dict, runs: dict) -> list[dict]:
     """The kernels line's entries of banded_ed and viterbi: launches on
     the main paths (phase 15's runs), the largest difference from the
-    plain version over every comparison, and the timed shapes."""
+    plain version over every comparison, and the timed shapes. viterbi's
+    headline is the launch the HMM stages make: every profile over the
+    --bio run's ragged rows, its plain time that of the shortest and the
+    longest profile on the rows cut to VITERBI_PLAIN_CUT positions (on
+    the full rows the plain version would outlast the run); one profile
+    on the padded rows, the one-profile kernel's earlier shape, is kept
+    under ``single_profile``."""
     new = record["kernel_vs_plain_new"]
     ed_rows = new["banded_ed"]
     ed = next(r for r in ed_rows if "ms" in r)
     vit = record["hybrid"]["bio"]["viterbi"]
+    bat = vit["batched"]
     vit_rows = new["viterbi"]
     return [{
         "name": "banded_ed", "route": "cuda", "source": ED_SOURCE,
@@ -3475,14 +3626,23 @@ def new_kernel_lines(record: dict, runs: dict) -> list[dict]:
         "name": "viterbi", "route": "cuda", "source": VITERBI_SOURCE,
         "replaces": VITERBI_REPLACES,
         "launches": sum(n["viterbi"] for n in runs.values()),
-        "max_abs_err": max([vit["max_abs_err"]]
+        "max_abs_err": max([vit["max_abs_err"],
+                            new["viterbi_batched"]["max_abs_err"]]
                            + [r["max_abs_err"] for r in vit_rows]),
-        "ms": vit["cut"]["ms"], "plain_ms": vit["cut"]["plain_ms"],
-        "bound_ms": vit["cut"]["bound_ms"], "bound_by": vit["cut"]["bound_by"],
+        "ms": bat["ms"], "plain_ms": bat["cut"]["plain_ms"],
+        "bound_ms": bat["bound_ms"], "bound_by": bat["bound_by"],
         "library_ms": None,
-        "shape": {"rows": vit["rows"], "L": vit["cut"]["L"], "m": vit["m"]},
-        "full_rows": dict(vit["full"], rows=vit["rows"], m=vit["m"]),
+        "shape": {"rows": vit["rows"], "profiles": bat["profiles"],
+                  "positions": bat["positions"],
+                  "longest_row": bat["longest_row"]},
+        "plain_shape": {"rows": vit["rows"], "L": bat["cut"]["L"],
+                        "profiles": vit["profiles_compared"]},
+        "batched": bat,
+        "single_profile": {"m": vit["m"], "rows": vit["rows"],
+                           "cut": vit["cut"], "full": vit["full"]},
+        "launches_by_stage": vit["launches_by_stage"],
         "synthetic": [{key: r[key] for key in r} for r in vit_rows],
+        "synthetic_batched": new["viterbi_batched"],
         "launch_sites": {name: n["viterbi"] for name, n in runs.items()},
     }]
 

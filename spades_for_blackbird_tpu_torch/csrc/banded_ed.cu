@@ -1,4 +1,4 @@
-// Banded edit distance of a batch of sequence pairs, one block a pair.
+// Banded edit distance of a batch of sequence pairs, one warp a pair.
 //
 // Replaces the JAX package's ops/align.py::banded_edit_distance (:25):
 // there a lax.scan over the DP columns (:80) with a second lax.scan
@@ -20,109 +20,147 @@
 //   |a_len - b_len| + min(a_len, b_len), or the fallback where that slot
 //   is outside the band. Every value is an int32 below 2^21: no overflow.
 //
-// Design: a thread holds one slot in a register; the neighbour slot
-// comes through shared memory and the in-column term is a block-wide
-// inclusive min-scan (warp shuffles, then the warp totals). Three
-// __syncthreads a column. The recursion is serial over columns, so the
-// card's rates do not bound it: its time is the columns times the
-// latency of one column's scan (bytes: the two rows once, ~4 KB a pair;
-// operations: ~15 integer operations a cell).
+// The recursion is serial over columns, so the card's rates do not bound
+// it (bytes: the two rows once, ~4 KB a pair; operations: ~12 integer
+// operations a cell): a launch takes the columns times the latency of one
+// column. Design: a warp a pair, SPL consecutive slots a lane (the power
+// of two that fits ceil(W / 32): 4 at band 48, 32 at band 511), the band
+// in registers; the slot below a lane's last comes from the next lane by
+// one __shfl_down_sync; the in-column min-scan of x - w is an in-lane fold
+// and a 5-step shuffle scan. No shared memory and no __syncthreads; four
+// pairs a block, each warp on its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <limits.h>
 
 namespace {
 
 constexpr int kBig = 1 << 20;
 constexpr int kInvalid = 4;  // dna.INVALID_CODE
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPairsPerBlock = 4;
 
-__device__ __forceinline__ int warp_inclusive_min(int y, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int o = __shfl_up_sync(kFull, y, d);
-    if (lane >= d) y = min(y, o);
-  }
-  return y;
-}
-
-__global__ void banded_ed_kernel(const uint8_t* __restrict__ a,
-                                 const int32_t* __restrict__ a_len,
-                                 const uint8_t* __restrict__ b,
-                                 const int32_t* __restrict__ b_len,
-                                 int L, int band,
-                                 int32_t* __restrict__ out) {
-  extern __shared__ int shm[];
-  const int T = blockDim.x;
-  int* s_dp = shm;              // T slots
-  int* s_warp = shm + T;        // 32 warp totals
-  const int pair = blockIdx.x;
-  const int w = threadIdx.x;
-  const int lane = w & 31;
-  const int warp = w >> 5;
-  const int nwarps = T >> 5;
+template <int SPL>
+__global__ void __launch_bounds__(32 * kPairsPerBlock)
+    banded_ed_kernel(const uint8_t* __restrict__ a,
+                     const int32_t* __restrict__ a_len,
+                     const uint8_t* __restrict__ b,
+                     const int32_t* __restrict__ b_len, int B, int L,
+                     int band, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * kPairsPerBlock + (threadIdx.x >> 5);
+  if (pair >= B) return;
   const int W = 2 * band + 1;
   const uint8_t* ap = a + (size_t)pair * L;
   const uint8_t* bp = b + (size_t)pair * L;
   const int al = a_len[pair];
   const int bl = b_len[pair];
-  const int row0 = w - band;
+  const int w0 = lane * SPL;
 
-  int dp = (w < W && row0 >= 0) ? row0 : kBig;
+  // slots past the band (w >= W) hold BIG throughout
+  int dp[SPL];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    const int w = w0 + s;
+    dp[s] = (w < W && w >= band) ? w - band : kBig;
+  }
   const int ncols = min(bl, L);
+  // the bytes of column j: a[i - 1] of each slot (INVALID outside a) and
+  // b[j], fetched a column ahead so the loads wait on nothing
+  int an[SPL];
+  int bn = 0;
+  auto fetch = [&](int j) {
+    bn = bp[j];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int i1 = j + w0 + s - band;
+      const int v = ap[min(max(i1, 0), L - 1)];
+      an[s] = (i1 >= 0 && i1 < L) ? v : kInvalid;
+    }
+  };
+  if (ncols > 0) fetch(0);
   for (int j = 0; j < ncols; ++j) {
     const int jj = j + 1;
-    s_dp[w] = dp;
-    __syncthreads();
-    const int up = (w + 1 < W) ? s_dp[w + 1] : kBig;
-    const int i = jj + row0;
-    const int bj = bp[j];
-    const int ai = (i - 1 >= 0 && i - 1 < L) ? ap[i - 1] : kInvalid;
-    const int sub = (ai != bj || bj >= kInvalid) ? 1 : 0;
-    const int x = min(dp + sub, up + 1);
-    int y = warp_inclusive_min(x - w, lane);
-    if (lane == 31) s_warp[warp] = y;
-    __syncthreads();
-    if (warp == 0) {
-      int t = lane < nwarps ? s_warp[lane] : INT_MAX;
-      t = warp_inclusive_min(t, lane);
-      if (lane < nwarps) s_warp[lane] = t;
+    const int bj = bn;
+    int ai[SPL];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) ai[s] = an[s];
+    fetch(min(j + 1, ncols - 1));
+    int below = __shfl_down_sync(kFull, dp[0], 1);
+    if (lane == 31) below = kBig;
+    int y[SPL];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int w = w0 + s;
+      const int sub = (ai[s] != bj || bj >= kInvalid) ? 1 : 0;
+      const int up = s + 1 < SPL ? dp[s + 1] : below;
+      y[s] = min(dp[s] + sub, up + 1) - w;
+      if (s > 0) y[s] = min(y[s], y[s - 1]);
     }
-    __syncthreads();
-    if (warp > 0) y = min(y, s_warp[warp - 1]);
-    const int cur = min(y + w, kBig + 1 + w);
-    dp = (i >= 0 && i <= al) ? cur : kBig;
+    int t = y[SPL - 1];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, t, d);
+      if (lane >= d) t = min(t, o);
+    }
+    const int pre = __shfl_up_sync(kFull, t, 1);
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int w = w0 + s;
+      const int i = jj + w - band;
+      const int yy = lane > 0 ? min(y[s], pre) : y[s];
+      const int cur = min(yy + w, kBig + 1 + w);
+      dp[s] = (w < W && i >= 0 && i <= al) ? cur : kBig;
+    }
   }
-  s_dp[w] = dp;
-  __syncthreads();
-  if (w == 0) {
-    const int diff = al - bl;
-    const int fallback = (diff < 0 ? -diff : diff) + min(al, bl);
-    const int slot = band + diff;
-    out[pair] = (slot >= 0 && slot < W) ? min(s_dp[slot], fallback)
-                                        : fallback;
+  const int diff = al - bl;
+  const int fallback = (diff < 0 ? -diff : diff) + min(al, bl);
+  const int slot = band + diff;
+  int v = kBig;
+  if (slot >= 0 && slot < W) {
+#pragma unroll
+    for (int s = 0; s < SPL; ++s)
+      if (s == slot % SPL) v = dp[s];
+    v = __shfl_sync(kFull, v, slot / SPL);
   }
+  if (lane == 0) out[pair] = (slot >= 0 && slot < W) ? min(v, fallback)
+                                                     : fallback;
+}
+
+template <int SPL>
+int launch(const uint8_t* a, const int32_t* a_len, const uint8_t* b,
+           const int32_t* b_len, int B, int L, int band, int32_t* out,
+           cudaStream_t stream) {
+  const int blocks = (B + kPairsPerBlock - 1) / kPairsPerBlock;
+  banded_ed_kernel<SPL><<<blocks, 32 * kPairsPerBlock, 0, stream>>>(
+      a, a_len, b, b_len, B, L, band, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// a, b: (B, L) uint8; a_len, b_len: (B,) int32; out: (B,) int32.
-// Returns a cudaError_t (0 on success) of the launch.
+// a, b: (B, L) uint8; a_len, b_len: (B,) int32; out: (B,) int32; band
+// 0..511. Returns a cudaError_t (0 on success) of the launch.
 int sfb_banded_ed(const void* a, const void* a_len, const void* b,
                   const void* b_len, int B, int L, int band, void* out,
                   void* stream) {
   if (B <= 0) return 0;
-  const int W = 2 * band + 1;
-  if (band < 0 || W > 1024) return (int)cudaErrorInvalidValue;
-  const int T = (W + 31) / 32 * 32;
-  const size_t shm = (size_t)(T + 32) * sizeof(int);
-  banded_ed_kernel<<<B, T, shm, (cudaStream_t)stream>>>(
-      (const uint8_t*)a, (const int32_t*)a_len, (const uint8_t*)b,
-      (const int32_t*)b_len, L, band, (int32_t*)out);
-  return (int)cudaGetLastError();
+  if (band < 0 || band > 511) return (int)cudaErrorInvalidValue;
+  const int need = (2 * band + 1 + 31) / 32;  // slots a lane
+  auto* ua = (const uint8_t*)a;
+  auto* ub = (const uint8_t*)b;
+  auto* la = (const int32_t*)a_len;
+  auto* lb = (const int32_t*)b_len;
+  auto* o = (int32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (need <= 1) return launch<1>(ua, la, ub, lb, B, L, band, o, s);
+  if (need <= 2) return launch<2>(ua, la, ub, lb, B, L, band, o, s);
+  if (need <= 4) return launch<4>(ua, la, ub, lb, B, L, band, o, s);
+  if (need <= 8) return launch<8>(ua, la, ub, lb, B, L, band, o, s);
+  if (need <= 16) return launch<16>(ua, la, ub, lb, B, L, band, o, s);
+  return launch<32>(ua, la, ub, lb, B, L, band, o, s);
 }
 
 const char* sfb_banded_ed_error(int err) {

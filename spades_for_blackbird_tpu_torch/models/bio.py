@@ -4,10 +4,12 @@ PyTorch counterpart of the JAX package's ``models/bio.py``:
 
 - :func:`extract_domains` — ``ExtractDomains``
   (projects/spades/extract_domains.cpp + domain_matcher.cpp:36-110):
-  translate every contig in 3 frames on both strands, score all frames
-  against each profile HMM in one Viterbi launch a profile
-  (``ops/hmm.py``, the kernel ``csrc/viterbi.cu`` on a card), and write
-  the hit subsequences to ``temp_anti/restricted_edges.fasta``
+  translate every contig in 3 frames on both strands into one ragged
+  buffer, score all frames against every profile HMM in one batched
+  Viterbi call a group of profiles (``ops/hmm.py``, the kernel
+  ``csrc/viterbi.cu`` on a card; one group unless the outputs outgrow
+  the card's free memory, a profile a group on the CPU), and write the
+  hit subsequences to ``temp_anti/restricted_edges.fasta``
   (domain_matcher.cpp:157-172). Only the rows that reach the score
   threshold come back to the host for the greedy hit selection.
 - :func:`fill_restricted_edges` — ``RestrictedEdgesFilling``
@@ -82,6 +84,15 @@ def _frames(contigs: list[str]):
     return frames
 
 
+def frame_rows(frames):
+    """The frames' AA codes as one ragged buffer: (residues (N,) uint8,
+    row offsets (B,) int64, row lengths (B,) int64)."""
+    lengths = np.array([len(f[3]) for f in frames], np.int64)
+    flat = np.concatenate([f[3] for f in frames]).astype(np.uint8) \
+        if frames else np.zeros(0, np.uint8)
+    return flat, np.cumsum(lengths) - lengths, lengths
+
+
 def extract_domains(contigs: list[str], profiles,
                     score_threshold: float = 20.0,
                     min_model_frac: float = 0.1,
@@ -91,50 +102,61 @@ def extract_domains(contigs: list[str], profiles,
     on ``device`` (``resolve_device``: the card unless ``"cpu"`` is
     asked for).
 
+    The frames are one ragged buffer; each group of profiles (as many as
+    the card's free memory holds the outputs of, one on the CPU:
+    ``hmm.profiles_per_launch``) is one batched Viterbi call over all of
+    them.
+
     ``min_model_frac``: discard hits spanning less than this fraction of
     the model (domain_matcher.cpp:57 'Fragmented hit' filter uses 1/10).
     """
     frames = _frames(contigs)
     hits: list[DomainHit] = []
-    if frames:
+    if frames and profiles:
         device = resolve_device(device)
-        L = max(len(f[3]) for f in frames)
-        B = len(frames)
-        seqs = np.full((B, L), aa_ops.STOP, np.uint8)
-        lengths = np.zeros(B, np.int32)
-        for i, (_, _, _, ac) in enumerate(frames):
-            seqs[i, :len(ac)] = ac
-            lengths[i] = len(ac)
-        s_t = torch.from_numpy(seqs).to(device)
-        l_t = torch.from_numpy(lengths).to(device)
-        inside = (torch.arange(L, device=device)[None, :]
-                  < l_t[:, None])
-        for prof in profiles:
-            es, st = hmm_ops.viterbi_kernel(
-                *hmm_ops.profile_tensors(prof, device), s_t, l_t,
-                prof.length)
+        flat, offsets, lengths = frame_rows(frames)
+        seqs = torch.from_numpy(flat).to(device)
+        row_off = torch.from_numpy(offsets).to(device)
+        row_len = torch.from_numpy(lengths.astype(np.int32)).to(device)
+        B, N = len(frames), int(lengths.sum())
+        row_of = torch.repeat_interleave(
+            torch.arange(B, device=device), row_len)           # (N,)
+        group = hmm_ops.profiles_per_launch(N, len(profiles), device)
+        for lo in range(0, len(profiles), group):
+            part = profiles[lo:lo + group]
+            es, st = hmm_ops.viterbi_kernel.batched(
+                hmm_ops.pack_profiles(part, device), seqs, row_off, row_len)
             # a row below the threshold everywhere has no hit: only the
             # others come to the host
-            hot = torch.nonzero(((es >= score_threshold) & inside).any(
-                dim=1)).flatten()
-            es_h = es[hot].cpu().numpy()
-            st_h = st[hot].cpu().numpy()
+            row_max = torch.full((len(part), B), -torch.inf,
+                                 device=device).scatter_reduce_(
+                1, row_of.expand(len(part), N), es, "amax")
+            hot = (row_max >= score_threshold).cpu().numpy()
+            for k, prof in enumerate(part):
+                rows = np.flatnonzero(hot[k])
+                if not len(rows):
+                    continue
+                sel = torch.from_numpy(hot[k]).to(device)[row_of]
+                es_h = es[k][sel].cpu().numpy()
+                st_h = st[k][sel].cpu().numpy()
+                ends = np.cumsum(lengths[rows])
+                min_span = max(1, int(min_model_frac * prof.length))
+                for i, hi in zip(rows, ends):
+                    ci, strand, fr, _ = frames[i]
+                    at = hi - lengths[i]
+                    for a, b, s in hmm_ops.find_hits(
+                            es_h[at:hi], st_h[at:hi], int(lengths[i]),
+                            score_threshold, min_span):
+                        nt_a = a * 3 + fr
+                        nt_b = (b + 1) * 3 + fr
+                        clen = len(contigs[ci])
+                        if strand < 0:
+                            nt_a, nt_b = clen - nt_b, clen - nt_a
+                        hits.append(DomainHit(
+                            name=prof.name, desc=prof.desc, contig=ci,
+                            strand=strand, nt_start=nt_a, nt_end=nt_b,
+                            score=float(s), seq=contigs[ci][nt_a:nt_b]))
             del es, st
-            min_span = max(1, int(min_model_frac * prof.length))
-            for r, i in enumerate(hot.cpu().numpy()):
-                ci, strand, fr, _ = frames[i]
-                for a, b, s in hmm_ops.find_hits(
-                        es_h[r], st_h[r], int(lengths[i]), score_threshold,
-                        min_span):
-                    nt_a = a * 3 + fr
-                    nt_b = (b + 1) * 3 + fr
-                    clen = len(contigs[ci])
-                    if strand < 0:
-                        nt_a, nt_b = clen - nt_b, clen - nt_a
-                    hits.append(DomainHit(
-                        name=prof.name, desc=prof.desc, contig=ci,
-                        strand=strand, nt_start=nt_a, nt_end=nt_b,
-                        score=float(s), seq=contigs[ci][nt_a:nt_b]))
 
     if output_dir is not None:
         tdir = os.path.join(output_dir, "temp_anti")

@@ -10,7 +10,7 @@ tensor goes to ``banded_edit_distance_plain``, which steps over the
 columns in PyTorch; the JAX package's scan inside a column has the
 closed form ``cur[w] = min over w' <= w of (x[w'] + w - w')``, which is
 ``w + cummin(x - w)``, exact in int32. A CUDA tensor launches the hand
-kernel ``csrc/banded_ed.cu`` (one block a pair, the whole recursion in
+kernel ``csrc/banded_ed.cu`` (one warp a pair, the whole recursion in
 one launch); a failed build or launch raises.
 """
 
@@ -24,7 +24,7 @@ from . import dna
 from .cuda_build import CudaLibrary
 
 _BIG = 1 << 20
-MAX_BAND = 511  # 2*band + 1 slots fit a block of 1024 threads
+MAX_BAND = 511  # 2*band + 1 slots: at most 32 a lane of a warp
 
 
 def banded_edit_distance_plain(a: torch.Tensor, a_len: torch.Tensor,

@@ -151,6 +151,84 @@ def test_viterbi_signature_of_the_jax_package():
                                         device="meta"), 16)
 
 
+def _ragged_batch(rng, ms, lengths):
+    """Profiles of lengths ``ms`` (random and consensus, in both
+    packages) and ragged rows of ``lengths`` with planted copies, as one
+    flat buffer with its row offsets."""
+    profs, jprofs = [], []
+    for k, m in enumerate(ms):
+        if k % 2:
+            prof, jprof = _random_profile(rng, m)
+        else:
+            cons = rng.integers(0, 20, m)
+            prof = hmm.hmm_from_consensus(f"c{k}", cons)
+            jprof = jhmm.hmm_from_consensus(f"c{k}", cons)
+        profs.append(prof)
+        jprofs.append(jprof)
+    lengths = np.asarray(lengths, np.int32)
+    seqs, _ = _rows(rng, rng.integers(0, 20, min(ms)), len(lengths),
+                    int(lengths.max()))
+    flat = np.concatenate([seqs[b, :n] for b, n in enumerate(lengths)])
+    offsets = (np.cumsum(lengths) - lengths).astype(np.int64)
+    return profs, jprofs, flat, offsets, lengths
+
+
+def test_batched_viterbi_equals_each_profile_and_jax():
+    """The batched call over ragged rows (the plain version, which the
+    CPU takes) gives, bit for bit, ``viterbi_ends_plain`` of each profile
+    on the padded rows, NEG and 0 outside every row, and the JAX
+    package's ``score_batch`` within SCORE_RTOL / SCORE_ATOL."""
+    rng = np.random.default_rng(9)
+    lengths = [0, 1, 57, 130, 3, 88]
+    profs, jprofs, flat, offsets, lengths = _ragged_batch(
+        rng, (12, 41, 60), lengths)
+    pack = hmm.pack_profiles(profs, "cpu")
+    assert pack.lengths == (12, 41, 60) and pack.npl == 2
+    seqs, row_off, row_len = (torch.from_numpy(x)
+                              for x in (flat, offsets, lengths))
+    before = hmm.viterbi_kernel.launches
+    es, st = hmm.viterbi_kernel.batched(pack, seqs, row_off, row_len)
+    assert hmm.viterbi_kernel.launches == before
+    assert es.shape == st.shape == (3, len(flat))
+    assert es.dtype == torch.float32 and st.dtype == torch.int32
+    L = int(lengths.max())
+    padded = np.full((len(lengths), L), aa.STOP, np.uint8)
+    for b, (o, n) in enumerate(zip(offsets, lengths)):
+        padded[b, :n] = flat[o:o + n]
+    for p, (prof, jprof) in enumerate(zip(profs, jprofs)):
+        want_es, want_st = hmm.viterbi_ends_plain(
+            *hmm.profile_tensors(prof, "cpu"), torch.from_numpy(padded),
+            row_len, prof.length)
+        jes, jst = jhmm.score_batch(jprof, padded, lengths)
+        got_es = np.full((len(lengths), L), hmm.NEG, np.float32)
+        got_st = np.zeros((len(lengths), L), np.int32)
+        for b, (o, n) in enumerate(zip(offsets, lengths)):
+            got_es[b, :n] = es[p, o:o + n].numpy()
+            got_st[b, :n] = st[p, o:o + n].numpy()
+            assert np.array_equal(
+                got_es[b, :n].view(np.int32),
+                want_es[b, :n].numpy().view(np.int32)), (p, b)
+            assert np.array_equal(got_st[b, :n], want_st[b, :n].numpy())
+        _assert_ends_match(got_es, got_st, jes, jst, lengths)
+
+
+def test_extract_domains_takes_any_profile_group(monkeypatch):
+    """One batched call a profile, two, or one for all (the group size
+    forced), and the default group, give the same hits."""
+    profs = [hmm.hmm_from_consensus(f"m{i}", aa.encode_aa(s))
+             for i, s in enumerate(MOTIFS + MOTIFS[:1])]
+    contigs = _contigs()
+    sized = hmm.profiles_per_launch
+    runs = []
+    for n in (1, 2, len(profs), None):
+        monkeypatch.setattr(hmm, "profiles_per_launch",
+                            sized if n is None else lambda *a, n=n: n)
+        runs.append(bio.extract_domains(contigs, profs, score_threshold=15.0,
+                                         device="cpu"))
+    assert runs[0] and all(r == runs[0] for r in runs[1:])
+    assert [h.name for h in runs[0]] == sorted(h.name for h in runs[0])
+
+
 def test_translation_matches_jax():
     rng = np.random.default_rng(2)
     codes = rng.integers(0, 4, 301).astype(np.uint8)

@@ -431,11 +431,11 @@ def test_sc_assembly_card_equals_cpu(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("band", [4, 48])
+@pytest.mark.parametrize("band", [0, 1, 4, 15, 16, 48, 511])
 def test_banded_ed_kernel_equals_plain(card, band):
     """The hand kernel csrc/banded_ed.cu bit-equal to its plain version:
     similar and unrelated pairs, lengths 0 and 1, length differences in
-    and past the band."""
+    and past the band; one slot a lane up to band 15, then 2-32."""
     from spades_for_blackbird_tpu_torch.ops import align
     rng = np.random.default_rng(band)
     B, L = 40, 700
@@ -443,8 +443,8 @@ def test_banded_ed_kernel_equals_plain(card, band):
     b = np.where(rng.random((B, L)) < 0.1, rng.integers(0, 5, (B, L)),
                  a).astype(np.uint8)
     a_len = rng.integers(0, L + 1, B).astype(np.int32)
-    b_len = np.clip(a_len + rng.integers(-2 * band, 2 * band + 1, B), 0,
-                    L).astype(np.int32)
+    b_len = np.clip(a_len + rng.integers(-2 * band - 2, 2 * band + 3, B),
+                    0, L).astype(np.int32)
     a_len[:2], b_len[:2] = (0, 1), (1, 0)
     kernel = align.BandedEditDistanceKernel()
     args = [torch.from_numpy(x).to(card) for x in (a, a_len, b, b_len)]
@@ -456,10 +456,12 @@ def test_banded_ed_kernel_equals_plain(card, band):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [37, 1100])
+@pytest.mark.parametrize("m", [20, 37, 120, 300, 512, 513, 1100, 2048])
 def test_viterbi_kernel_equals_plain(card, m):
     """The hand kernel csrc/viterbi.cu bit-equal to its plain version at
-    every position within a row's length (one node a thread, and two)."""
+    every position within a row's length, one profile on a padded array:
+    the warp path (m <= 512, 2-16 nodes a lane) and the block path (one
+    node a thread, and two)."""
     from spades_for_blackbird_tpu_torch.ops import hmm
     rng = np.random.default_rng(m)
     cons = rng.integers(0, 20, m)
@@ -478,3 +480,37 @@ def test_viterbi_kernel_equals_plain(card, m):
     inside = torch.arange(L, device=card)[None, :] < ln[:, None]
     assert torch.equal(torch.where(inside, es, 0), torch.where(inside, pes, 0))
     assert torch.equal(torch.where(inside, st, 0), torch.where(inside, pst, 0))
+    assert bool((es[~inside] == hmm.NEG).all()) and bool(
+        (st[~inside] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ms,lengths", [
+    ((20, 120, 300, 512, 513, 1100, 2048), (0, 1, 600, 37, 2, 451, 129)),
+    ((37, 300, 1100), (0, 1, 20_000, 500, 3))])
+def test_viterbi_batched_kernel_equals_plain(card, ms, lengths):
+    """Profiles of mixed m (both paths) over ragged rows in one entry
+    call, the buffer a view at an odd address: bit-equal to the plain
+    batched version everywhere, rows of 0, 1 and 20,000 positions."""
+    from spades_for_blackbird_tpu_torch.ops import hmm
+    rng = np.random.default_rng(len(ms))
+    profs = [hmm.hmm_from_consensus(f"c{m}", rng.integers(0, 20, m))
+             for m in ms]
+    lengths = np.asarray(lengths, np.int32)
+    flat = rng.integers(0, 21, int(lengths.sum()) + 1).astype(np.uint8)
+    offsets = (np.cumsum(lengths) - lengths).astype(np.int64)
+    for prof, o in zip(profs, offsets[2:]):
+        cons = prof.match[:, :20].argmax(1)
+        flat[1 + o:1 + o + len(cons)] = cons[:len(flat) - 1 - o]
+    seqs = torch.from_numpy(flat).to(card)[1:]
+    row_off, row_len = (torch.from_numpy(x).to(card)
+                        for x in (offsets, lengths))
+    kernel = hmm.ViterbiKernel()
+    pack = hmm.pack_profiles(profs, card)
+    es, st = kernel.batched(pack, seqs, row_off, row_len)
+    pes, pst = hmm.viterbi_batched_plain(pack, seqs, row_off, row_len)
+    torch.cuda.synchronize()
+    assert kernel.launches == 2  # the warp and the block kernel
+    assert torch.equal(es.view(torch.int32), pes.view(torch.int32))
+    assert torch.equal(st, pst)
+
