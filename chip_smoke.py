@@ -10,9 +10,9 @@ Phases, each of which raises on failure (the script then exits 1 and
 prints no result):
 
 1. the card's name and power limit (nvidia-smi); build of the port's
-   three CUDA kernels from ``spades_for_blackbird_tpu_torch/csrc`` (the
-   k-mer extraction, the banded edit distance and the Viterbi), one
-   ``nvcc`` a source, all started together;
+   four CUDA kernels from ``spades_for_blackbird_tpu_torch/csrc`` (the
+   k-mer extraction, the banded edit distance, the Viterbi and the
+   ordered segment sum), one ``nvcc`` a source, all started together;
 2. kernel vs its plain PyTorch version on the card: simulated reads
    with N bases and short reads, L = 100 and 150, k+1 in
    {22, 34, 56, 78, 128} at nine fixed chunk shapes, the three shapes
@@ -112,15 +112,17 @@ prints no result):
    ``--continue`` on the finished directory must return 0 and run no
    stage;
 7. the error corrector at full size: the 4.6 Mb simulation of phase 4
-   with its qualities; the true reads are the same simulation with no
-   errors (the generator draws the same numbers). (a) ``correct_reads``
+   with its qualities; the true reads are phase 4's reads before their
+   errors were drawn. (a) ``correct_reads
    on the card, timed by scope: bases wrong before and after, bases it
    made wrong; at most a quarter of the wrong bases may be left. (b) the
    default command, ``cli.main(["-s", fq, "-o", out, "--checkpoints",
-   "none", "--trace-time"])`` on the reads written with their qualities:
+   "none", "-k", "55", "--trace-time"])`` (the whole ladder until phase
+   16 came) on the reads written with their qualities:
    it must return 0, meet the quality bar on ``contigs.fasta`` and log
-   (a)'s correction stats. (a) runs once more under ``torch.profiler``
-   (the card's busy share). The kernel must launch inside the corrector,
+   (a)'s correction stats ((a)'s rerun under ``torch.profiler``, the
+   card's busy share, was cut when phase 16 came). The kernel must
+   launch inside the corrector,
    and while this phase runs the plain extraction raises if it is handed
    a tensor on the card. Wall, stages, the corrector's scopes and the
    peak device memory are printed;
@@ -147,8 +149,9 @@ prints no result):
    at ``-k 55`` (the whole ladder until phase 15 came):
    return 0, the quality bar on contigs and scaffolds, the kernel
    launched at least twice inside ``correct_mismatches``;
-10. ``--sc`` on uneven coverage: the first half of the 4.6 Mb genome (the
-   whole until phase 15 came), coverage
+10. ``--sc`` on uneven coverage: the first third of the 4.6 Mb genome
+   (the whole until phase 15 came, its first half until phase 16 came),
+   coverage
    constant over 5 kb blocks, ``clip(40 * exp(0.8 z), 8, 200)`` a block,
    phase 8's reads otherwise, as two FASTQ files with qualities;
    ``cli.main(["-1", f1, "-2", f2, "-o", out, "--sc", "--checkpoints",
@@ -169,9 +172,10 @@ prints no result):
    walls; (b) phase 8's reads with ``--only-assembler --assembly-graph``
    on phase 8's GFA: return 0 and the quality bar on contigs and
    scaffolds;
-12. the metagenome, cut to half its size since phase 15 came (META_SCALE):
-   four genomes of 1.0, 0.75, 0.5 and 0.25 Mb (2.0, 1.5, 1.0 and 0.5 Mb
-   before; seeds 21-24, GC 0.40, 0.50, 0.60, 0.45, phase 4's planted repeats) at
+12. the metagenome, cut to half its size when phase 15 came and to
+   0.35 of it when phase 16 came (META_SCALE): four genomes of 0.7,
+   0.525, 0.35 and 0.175 Mb (2.0, 1.5, 1.0 and 0.5 Mb at first; seeds
+   21-24, GC 0.40, 0.50, 0.60, 0.45, phase 4's planted repeats) at
    80, 40, 20 and 8x, a 20 kb window of the first copied into the second
    with 1% substitutions, a 12 kb and a 60 kb circular plasmid at 10 and 3
    copies of the first genome and a 45 kb circular phage at 150x, as FR
@@ -202,8 +206,8 @@ prints no result):
    held at >= 90% of their 21-mers by one contig (the share the JAX
    package's own strand split leaves, PERF.md); (b)
    ``-1/-2 --rnaviral`` on a 30 kb virus as three haplotypes (0, 1 and 3%
-   apart, 80/15/5 at 2,000x): return 0, the major haplotype at genome
-   fraction >= 0.95.
+   apart, 80/15/5 at 1,000x; 2,000x until phase 16 came): return 0, the
+   major haplotype at genome fraction >= 0.95.
 
 15. hybrid long reads, the HMM modes and the series analysis at full
    size, on phase 8's genome with 8 clusters of 3-5 reverse-translated
@@ -238,7 +242,40 @@ prints no result):
    peak memory and each kernel's launches (by stage) are printed for
    every run.
 
-Phases 9-15 run with the plain versions of the kernels refused on the
+16. the tools (``python -m spades_for_blackbird_tpu_torch.tools``) at
+   full size, each through ``tools.main`` on the card with every
+   kernel's count at 0 before it (wall, peak memory and launches
+   printed): ``gbuilder -k 55 --min-count 3`` on phase 8's reads, then
+   ``gsimplifier``, ``unitig-coverage`` and ``edge-positions`` on its
+   GFA (the ranges must cover 0.97 of the genome); ``kmercount`` and
+   ``kmer-estimating`` at k = 21 (the estimate within 6% of the distinct
+   count); ``read-filter``; ``gmapper`` with phase 15 (a)'s long reads on
+   phase 15 (b)'s graph (the aligned share printed, no floor);
+   ``scf-correction`` of phase 8's contigs with 40 planted runs of 100
+   N's (the gaps filled printed); ``cds-subgraphs`` with phase 15 (b)'s
+   profiles (``viterbi`` launched); ``prop-binning``,
+   ``kmer-multiplicity-counter`` and ``contig-abundance`` on phase 12's
+   community; then ``assemble_single_k`` at k = 55 with the max-flow EC
+   remover on phase 10's uneven reads: genome fraction >= 0.95 and no
+   misassembly.
+
+The float sums of every phase run through the ``seg_sum`` kernel
+(``csrc/seg_sum.cu``: the rows of a scatter-add sorted by slot, each
+slot's run added in row order): phase 1 builds it, phase 2 holds it
+bit-equal to its plain version (the CPU's ``index_add_`` on the same
+rows) at synthetic shapes (most rows on three slots; uniform; the
+corrector's (N, 21) quality sums; float64 moments), phase 3 holds
+``drop_scatter``'s float sum on the card to the CPU's bits in five calls
+on a collision-heavy scatter, runs the 20 kb ``--careful`` command
+three times on the card against the CPU's one run (byte-identical
+files), and runs each of the 19 tools on a 20 kb genome on the card and
+on the CPU (a child process): the same files and output, a number
+printed with d decimals within 10^-d; phase 4 holds its assembly's
+largest float sum (condense's coverage sums at k = 55) to the CPU's
+bits in five calls and times the kernel there, beside its bound, its
+plain version and ``index_add_`` on the card.
+
+Phases 9-16 run with the plain versions of the kernels refused on the
 card. Each phase's wall is printed as ``[timing]``. ``--only PHASES``
 runs some of the phases that need no other (for a short check) and
 prints no result.
@@ -292,7 +329,7 @@ RR_SCOPES = ("gc_build_index", "gc_map_reads", "rr_build_index",
              "rr_scaffold")
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
 LADDER_GENOME = 500_000  # phase 6: the checkpointed ladder's cut size
-META_SCALE = 0.5        # phases 12 and 15 (c): the community's genomes cut
+META_SCALE = 0.35       # phases 12 and 15 (c): the community's genomes cut
 SC_GENOME = FULL_GENOME // 2  # phase 10: the genome's first half
 HAMMER_SCOPES = ("hammer_count", "hammer_cluster", "hammer_subcluster",
                  "hammer_expand", "hammer_vote")
@@ -305,8 +342,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12 / 2
 COV_RTOL = 1e-4
 # phase 3: the command lines' CPU runs, child processes beside the card's
-CPU_RUN_WIDTH = 3       # at once
-CPU_RUN_THREADS = 2     # each
+CPU_RUN_WIDTH = 5       # at once
+CPU_RUN_THREADS = 1     # each
 CPU_RUN_TIMEOUT = 900
 CAREFUL_ERRORS = 1000  # phase 9: bases planted in the k=55 graph
 SC_BLOCK = 5000        # phase 10: bases of constant coverage
@@ -318,7 +355,6 @@ VARIANT_AT = 1_000_000  # phase 11: where in the genome the copy starts
 # half of it the erroneous-connection remover (which the restricted-edge
 # mask does not cover, in either package) takes some allele edges
 VARIANT_COVERAGE = FULL_COVERAGE
-PROFILE_TOP_KERNELS = 25
 
 
 def log(msg: str) -> None:
@@ -332,21 +368,67 @@ def encode_fixed(reads: list[str]) -> np.ndarray:
 
 
 def simulate_reads(genome_size: int, coverage: float, read_len: int,
-                   seed: int, error_rate: float = 0.002):
+                   seed: int, error_rate: float = 0.002, truth: bool = False):
     """scale_bench.py's simulation: planted repeats, FR pairs, insert 300.
     Returns (genome, codes (R, L) uint8, lengths (R,) int32, quals (R, L)
-    uint8 phred+33)."""
+    uint8 phred+33), and with ``truth`` the reads' codes without their
+    errors too."""
     from spades_for_blackbird_tpu_torch.utils import simulate
     genome = simulate.random_genome(genome_size, seed=seed,
                                     repeats=[(2000, 3), (700, 4), (400, 6)])
     n_pairs = int(coverage * genome_size / (2 * read_len))
-    r1, q1, r2, q2 = simulate.simulate_paired_reads(
-        genome, n_pairs, read_len=read_len, insert_mean=300.0,
-        insert_sd=25.0, error_rate=error_rate, seed=seed + 1)
-    codes = encode_fixed(r1 + r2)
-    quals = np.frombuffer("".join(q1 + q2).encode("ascii"),
-                          np.uint8).reshape(codes.shape).copy()
-    return genome, codes, np.full(codes.shape[0], read_len, np.int32), quals
+    codes, quals, true_codes = paired_codes(
+        genome, n_pairs, read_len, 300.0, 25.0, error_rate, seed + 1)
+    out = (genome, codes, np.full(codes.shape[0], read_len, np.int32),
+           quals)
+    return out + (true_codes,) if truth else out
+
+
+def paired_codes(genome: str, n_pairs: int, read_len: int,
+                 insert_mean: float, insert_sd: float, error_rate: float,
+                 seed: int):
+    """``utils/simulate.py::simulate_paired_reads`` with the same random
+    numbers, kept as arrays: (codes (2n, L) uint8, first mates then
+    second mates; their phred+33 qualities; the codes without the
+    errors). The same reads, without a string a read in between."""
+    from spades_for_blackbird_tpu_torch.ops import dna
+    comp = np.zeros(256, np.uint8)
+    for a, b in zip(b"ACGTN", b"TGCAN"):
+        comp[a] = b
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    g = np.frombuffer(genome.encode("ascii"), dtype=np.uint8)
+    L = len(g)
+    ins = np.clip(rng.normal(insert_mean, insert_sd, n_pairs).astype(int),
+                  read_len, None)
+    start = rng.integers(0, np.maximum(L - ins, 1), n_pairs)
+    fwd = rng.random(n_pairs) < 0.5
+    offs = np.arange(read_len)
+    r1 = g[np.minimum(start[:, None] + offs[None, :], L - 1)]
+    r2 = g[np.minimum(start[:, None] + (ins - read_len)[:, None]
+                      + offs[None, :], L - 1)]
+    r2 = comp[r2[:, ::-1]]
+    r1, r2 = (np.where(fwd[:, None], r1, comp[r2[:, ::-1]]),
+              np.where(fwd[:, None], r2, comp[r1[:, ::-1]]))
+    true_reads = np.concatenate([r1, r2])
+
+    def add_errors(reads):
+        err = rng.random(reads.shape) < error_rate
+        shift = rng.integers(1, 4, reads.shape)
+        reads = reads.copy()
+        reads[err] = alpha[(dna._CHAR_TO_CODE[reads[err]].astype(np.int64)
+                            + shift[err]) % 4]
+        qual = np.where(rng.random(reads.shape) < 0.01, 12, 38).astype(
+            np.uint8)
+        qual[err & (rng.random(reads.shape) < 0.7)] = 8
+        return reads, qual + 33
+
+    r1, q1 = add_errors(r1)
+    r2, q2 = add_errors(r2)
+    to_codes = dna._CHAR_TO_CODE
+    return (to_codes[np.concatenate([r1, r2])],
+            np.concatenate([q1, q2]).astype(np.uint8),
+            to_codes[true_reads])
 
 
 def write_fastq(path: str, codes, quals) -> None:
@@ -708,10 +790,12 @@ def phase_gpu_vs_cpu(device) -> dict:
     ladder = cli_gpu_vs_cpu(device, codes, lengths, quals)
     modes = modes_gpu_vs_cpu(device)
     hybrid = hybrid_modes_gpu_vs_cpu(device)
+    sums = sums_gpu_vs_cpu(device)
+    tools = tools_gpu_vs_cpu(device)
     return {"contigs": len(a), "gpu_s": t_gpu, "cpu_s": t_cpu,
             "contig_windows": windows, "hammer": hammer,
             "restricted": restricted, "cli": ladder, "modes": modes,
-            "hybrid_modes": hybrid}
+            "hybrid_modes": hybrid, "sums": sums, "tools": tools}
 
 
 def plant_snps(genome: str, lo: int, n: int, spacing: int):
@@ -892,6 +976,12 @@ def cli_gpu_vs_cpu(device, codes, lengths, quals) -> dict:
                 f"{len(a)} identical contigs, {len(sa)} identical segments, "
                 f"{len(la)} identical links, {len(pa)} identical P-lines; "
                 f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
+        # the run a card's unordered float sums once flipped
+        _, extra, _, (_, cpu) = next(c for c in compared
+                                     if c[0] == "careful")
+        record["careful"]["card_repeats"] = careful_again(
+            device, [os.path.join(tmp, "careful", f"cuda_{i}")
+                     for i in range(2, CAREFUL_REPEATS + 1)], cpu, extra)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return record
@@ -961,28 +1051,31 @@ def gfa_records(path: str):
 
 def phase_full(device) -> tuple[dict, tuple]:
     """The full-size assembly; returns its record, and the genome, its
-    reads and the assembled graph."""
+    reads, the reads without their errors and the assembled graph."""
     import torch
-    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda, seg_sum
     from spades_for_blackbird_tpu_torch.pipeline import assemble
     from spades_for_blackbird_tpu_torch.utils import assess, timetrace
 
     t0 = time.perf_counter()
-    genome, codes, lengths, quals = simulate_reads(
-        FULL_GENOME, FULL_COVERAGE, FULL_READ_LEN, seed=7)
+    genome, codes, lengths, quals, truth = simulate_reads(
+        FULL_GENOME, FULL_COVERAGE, FULL_READ_LEN, seed=7, truth=True)
     sim_s = time.perf_counter() - t0
     log(f"[full] simulated {FULL_GENOME} bp, {codes.shape[0]} reads in "
         f"{sim_s:.1f} s")
     kernel = kmer_cuda.extract_sort_keys
+    sums = seg_sum.seg_sum
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     timetrace.enable()
-    kernel.launches = 0
-    t0 = time.perf_counter()
-    res = assemble.assemble_single_k(codes, lengths, FULL_K, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel.launches
+    with record_largest_float_sum() as seen:
+        kernel.launches = sums.launches = 0
+        t0 = time.perf_counter()
+        res = assemble.assemble_single_k(codes, lengths, FULL_K,
+                                         device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, seg_launches = kernel.launches, sums.launches
     timetrace.disable()
     peak = torch.cuda.max_memory_allocated(device)
     scopes = scope_seconds(timetrace.events())
@@ -991,10 +1084,12 @@ def phase_full(device) -> tuple[dict, tuple]:
     report = assess.assess([s for s, _ in res.contigs], genome)
     res_stats = res.stats
     log(f"[full] assemble_single_k k={FULL_K}: {wall:.2f} s, peak device "
-        f"memory {peak / 2**30:.2f} GiB, kernel launches {launches}")
+        f"memory {peak / 2**30:.2f} GiB, kernel launches {launches}, "
+        f"seg_sum launches {seg_launches}")
     log(f"[full] contigs: {json.dumps(report.to_dict())}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
+    if launches <= 0 or seg_launches <= 0:
+        raise AssertionError("the main path never launched a kernel")
+    sums_row = main_path_sums(device, seen)
     if report.genome_fraction < 0.97 or report.misassemblies != 0:
         raise AssertionError(
             f"quality bar missed: genome fraction "
@@ -1010,45 +1105,11 @@ def phase_full(device) -> tuple[dict, tuple]:
     return {"genome_size": FULL_GENOME, "reads": int(codes.shape[0]),
             "k": FULL_K, "wall_s": wall, "sim_s": sim_s,
             "peak_bytes": int(peak), "launches": launches,
+            "seg_launches": seg_launches, "seg_sum": sums_row,
             "scopes_s": scopes, "stats": res_stats,
             "contig_windows": windows, "index_rows": index_rows,
-            "assess": report.to_dict()}, (genome, codes, lengths, quals, g)
-
-
-def busy_union_us(spans: list[tuple[float, float]]) -> float:
-    """Total length of the union of ``(start, end)`` intervals."""
-    total, cur_start, cur_end = 0.0, None, None
-    for start, end in sorted(spans):
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    if cur_end is not None:
-        total += cur_end - cur_start
-    return total
-
-
-def device_table(prof) -> tuple[list[list], float, float]:
-    """Device spans of a ``torch.profiler`` run: per-name seconds and
-    counts (largest first), their sum, and the seconds of their union."""
-    from torch.autograd import DeviceType
-    by_name: dict[str, list] = {}
-    spans = []
-    for ev in prof.events():
-        # CUPTI reports the driver's full command buffer (the host waits
-        # to enqueue) as an overhead span; it is no work on the card
-        if ev.device_type != DeviceType.CUDA or \
-                ev.name.startswith("Command Buffer Full"):
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        spans.append((start, end))
-        row = by_name.setdefault(ev.name, [ev.name, 0.0, 0])
-        row[1] += (end - start) / 1e6
-        row[2] += 1
-    rows = sorted(by_name.values(), key=lambda r: -r[1])
-    return rows, sum(r[1] for r in rows), busy_union_us(spans) / 1e6
+            "assess": report.to_dict()}, (genome, codes, lengths, quals,
+                                          truth, g)
 
 
 def scope_seconds(events) -> dict[str, float]:
@@ -1213,7 +1274,7 @@ def plain_extraction_refused():
             setattr(mod, name, fn)
 
 
-def phase_hammer(device, genome, codes, lengths, quals) -> dict:
+def phase_hammer(device, genome, codes, lengths, quals, truth) -> dict:
     """The error corrector on the 4.6 Mb simulation: ``correct_reads`` on
     the card against the true reads, then the default command."""
     import torch
@@ -1223,11 +1284,6 @@ def phase_hammer(device, genome, codes, lengths, quals) -> dict:
     from spades_for_blackbird_tpu_torch.utils import assess, timetrace
 
     kernel = kmer_cuda.extract_sort_keys
-    t0 = time.perf_counter()
-    _, truth, _, _ = simulate_reads(FULL_GENOME, FULL_COVERAGE,
-                                    FULL_READ_LEN, seed=7, error_rate=0.0)
-    log(f"[hammer] simulated the true reads in "
-        f"{time.perf_counter() - t0:.1f} s")
     wrong = codes != truth
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1251,30 +1307,8 @@ def phase_hammer(device, genome, codes, lengths, quals) -> dict:
             peak = torch.cuda.max_memory_allocated(device) - before_mem
             scopes = scope_seconds(timetrace.events())
             fixed = fixed.cpu().numpy()
-            # the same call again under torch.profiler: where the card's
-            # time goes, and its busy share of the wall
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                correct.correct_reads(c, ln, quals=q, device=device)
-                torch.cuda.synchronize()
-                prof_wall = time.perf_counter() - t0
-            rows, device_sum, busy = device_table(prof)
-            profile = {"profiled_wall_s": prof_wall,
-                       "device_busy_union_s": busy,
-                       "device_busy_share": busy / prof_wall if rows else None,
-                       "device_summed_s": device_sum,
-                       "device_kernels": rows[:PROFILE_TOP_KERNELS]}
-            del c, ln, q, prof
+            del c, ln, q
             torch.cuda.empty_cache()
-            log(f"[hammer] correct_reads under torch.profiler: "
-                f"{prof_wall:.3f} s, device busy union {busy:.3f} s"
-                + (f" = {busy / prof_wall:.1%}" if rows else
-                   " (no device span seen: not measured)"))
-            for name, sec, n in rows[:10]:
-                log(f"[hammer] profile {sec:8.4f} s {n:7d}x  {name[:120]}")
             after = fixed != truth
             counts = {"wrong_before": int(wrong.sum()),
                       "wrong_after": int(after.sum()),
@@ -1305,7 +1339,7 @@ def phase_hammer(device, genome, codes, lengths, quals) -> dict:
             write_s = time.perf_counter() - t0
             out = os.path.join(tmp, "out")
             argv = ["-s", fq, "-o", out, "--checkpoints", "none",
-                    "--trace-time"]
+                    "-k", str(FULL_K), "--trace-time"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             kernel.launches = 0
@@ -1350,7 +1384,7 @@ def phase_hammer(device, genome, codes, lengths, quals) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"reads": int(codes.shape[0]), "wall_s": wall, "stats": stats,
             "launches": launches, "peak_bytes": int(peak),
-            "scopes_s": scopes, **counts, "profile": profile,
+            "scopes_s": scopes, **counts,
             "fastq_write_s": write_s,
             "cli_wall_s": cli_wall, "cli_launches": cli_launches,
             "cli_peak_bytes": int(cli_peak), "cli_stages_s": stages,
@@ -1409,7 +1443,7 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
     output stay in ``tmp`` for phases 9 and 11."""
     import torch
     from spades_for_blackbird_tpu_torch import cli
-    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda, seg_sum
     from spades_for_blackbird_tpu_torch.pipeline import assemble, gap_closer
 
     kernel = kmer_cuda.extract_sort_keys
@@ -1430,12 +1464,12 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
                      (assemble, "repeat_resolution_multi")]) as inside:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        kernel.launches = 0
+        kernel.launches = seg_sum.seg_sum.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv + ["-o", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kernel.launches
+        launches, seg_launches = kernel.launches, seg_sum.seg_sum.launches
         peak = torch.cuda.max_memory_allocated(device)
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
@@ -1468,9 +1502,10 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
             f"{JAX_NG50[name]}), genome fraction "
             f"{rep.genome_fraction:.5f}, misassemblies "
             f"{rep.misassemblies}")
-    for name, n in inside.items():
+    for name, n in dict(inside, seg_sum=seg_launches).items():
         if n <= 0:
-            raise AssertionError(f"{name} never launched the kernel")
+            raise AssertionError(f"{name} never launched its kernel")
+    log(f"[paired] seg_sum launches {seg_launches}")
     for name in ("contigs.paths", "scaffolds.paths",
                  "scaffold_graph.scg", "assembly_graph.fastg"):
         if not os.path.getsize(os.path.join(out, name)):
@@ -1482,6 +1517,7 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
     return {"reads": int(codes.shape[0]), "wall_s": wall,
             "mates": mates, "out": out,
             "fastq_write_s": write_s, "launches": launches,
+            "seg_launches": seg_launches,
             "launches_inside": dict(inside), "peak_bytes": int(peak),
             "stages_s": stages, "spans_s": spans, "lib_data": lib_data,
             "assess": reports}
@@ -2291,9 +2327,24 @@ def phase_metagenome(device, tmp, scale: float = 1.0) -> dict:
                       "launches_by_stage": by_stage, "peak_bytes": peak,
                       "stages_s": stages, "spans_s": spans,
                       "grades": grades}
-    shutil.rmtree(out)
     tables = {name: kmer_set(dna.encode_str(s))
               for name, s in genomes.items()}
+    # phase 16's community: the reads, the --meta run's graph and contigs,
+    # and its segments annotated with the genome most of their 21-mers
+    # come from
+    from spades_for_blackbird_tpu_torch.io import gfa as gfa_io
+    keep = {"mates": mates, "gfa": os.path.join(tmp, "meta_graph.gfa"),
+            "contigs": os.path.join(tmp, "meta_contigs.fasta"),
+            "ann": os.path.join(tmp, "meta_bins.ann")}
+    shutil.copy(os.path.join(out, "assembly_graph_with_scaffolds.gfa"),
+                keep["gfa"])
+    shutil.copy(os.path.join(out, "contigs.fasta"), keep["contigs"])
+    segs, _ = gfa_io.read_gfa(keep["gfa"])
+    names = [n for n, (sq, _) in segs.items() if len(sq) >= 500]
+    src = assign_sources([segs[n][0] for n in names], tables)
+    with open(keep["ann"], "w") as f:
+        f.write("".join(f"{n}\t{b}\n" for n, b in zip(names, src) if b))
+    shutil.rmtree(out)
 
     for mode in ("metaplasmid", "metaviral"):
         out = os.path.join(tmp, mode)
@@ -2356,8 +2407,7 @@ def phase_metagenome(device, tmp, scale: float = 1.0) -> dict:
             rec["phage_circular_share"] = phage
         record[mode] = rec
         shutil.rmtree(out)
-    for path in mates:
-        os.remove(path)
+    record["files"] = keep
     return record
 
 
@@ -2443,6 +2493,7 @@ ISOFORM_SHARE = 0.90      # share of an isoform one contig must hold
 # after it, with a graph bit-equal to the port's (ROADMAP.md, Queue 3).
 # The bar guards against a broken assembly, not against the reference.
 ISOFORM_BAR = 0.10
+VIRUS_COVERAGE = 1000.0   # phase 14 (b): 2,000x until phase 16 came
 
 
 def transcriptome(rng, n_genes: int):
@@ -2557,7 +2608,7 @@ def phase_rna(device, tmp, scale: float = 1.0) -> dict:
     for path in mates:
         os.remove(path)
 
-    # (b) a 30 kb RNA virus as three haplotypes, 80/15/5 at 2,000x
+    # (b) a 30 kb RNA virus as three haplotypes, 80/15/5 at VIRUS_COVERAGE
     major = simulate.random_genome(int(30_000 * max(scale, 0.1)), seed=52)
     g = dna.encode_str(major)
     parts = []
@@ -2565,7 +2616,8 @@ def phase_rna(device, tmp, scale: float = 1.0) -> dict:
         hap = g.copy()
         hit = rng.random(len(g)) < div
         hap[hit] = (hap[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
-        parts.append(sample_pairs(rng, hap, int(len(g) * 2000 * mix / 200)))
+        parts.append(sample_pairs(rng, hap,
+                                  int(len(g) * VIRUS_COVERAGE * mix / 200)))
     mates, pairs = write_mates(tmp, "virus", parts, rng)
     out = os.path.join(tmp, "rnaviral")
     argv = ["-1", mates[0], "-2", mates[1], "-o", out, "--rnaviral",
@@ -2643,6 +2695,759 @@ SERIES_RTOL = 0.20       # an edge's median sample ratio vs the planted one
 SERIES_MIN_EDGE = 1_000  # edges graded for the ratios
 
 
+SEG_SOURCE = f"{PACKAGE}/csrc/seg_sum.cu"
+# the float scatter-add it replaces: an XLA scatter, no Pallas kernel
+SEG_REPLACES = "spades_for_blackbird_tpu/graph/condense.py:170"
+SEG_REPEATS = 5         # phases 3 and 4: calls held to the CPU's bits
+CAREFUL_REPEATS = 3     # phase 3: card runs of --careful against the CPU's
+FLOAT32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TOOLS_GENOME = 20_000   # phase 3: the tools' genome
+TOOLS_CPU_CHILDREN = 2  # phase 3: child processes running the CPU's tools
+TOOLS_K = 55            # phase 16: gbuilder's k
+GBUILDER_MIN_COUNT = 3  # phase 16: gbuilder drops rarer (k+1)-mers
+KMERCOUNT_K = 21        # phase 16: kmercount and kmer-estimating
+HLL_TOLERANCE = 0.06    # phase 16: kmer-estimating against kmercount
+POSITIONS_BAR = 0.97    # phase 16: genome share the edge positions cover
+SCF_GAPS = 40           # phase 16: N runs planted in phase 8's contigs
+SCF_GAP_LEN = 100
+BINNED_SHARE = 8        # phase 16: prop-binning bins 1/8 of the first mates
+TOOLS_BUDGET_S = 90.0   # phase 16's wall, reported against it
+
+
+def seg_sum_bound(M: int, C: int, slots: int, itemsize: int):
+    """(bound ms, what bounds it) of one ordered segment sum: the sorted
+    slots (8 bytes a row) and values read once, each touched slot's value
+    read and written once, against M * C adds at the float32 rate."""
+    nbytes = 8 * M + itemsize * M * C + 2 * itemsize * slots * C
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = M * C / FLOAT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def float_bits_equal(a, b) -> bool:
+    """Two float tensors hold the same bits (a NaN or a signed zero
+    included)."""
+    import torch
+    a, b = a.contiguous().cpu(), b.contiguous().cpu()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8))
+
+
+def adversarial_rows(rng, n: int, M: int, cols: int, hot_share: float,
+                     hot: int, dtype):
+    """Scatter rows for the float sums: indices in [0, n] (n the dropped
+    slot), ``hot_share`` of them on ``hot`` slots, values of magnitudes
+    2^-40 to 2^40 with both signs. Returns (index, values) on the CPU."""
+    import torch
+    idx = rng.integers(0, n + 1, M)
+    on_hot = rng.random(M) < hot_share
+    idx[on_hot] = rng.integers(0, hot, int(on_hot.sum()))
+    vals = rng.standard_normal((M, cols)) * np.exp2(
+        rng.integers(-40, 40, (M, cols)))
+    vals = torch.from_numpy(vals if cols > 1 else vals[:, 0]).to(dtype)
+    return torch.from_numpy(idx), vals
+
+
+def seg_sum_row(device, index, src, limit: int, what: str,
+                timed: bool) -> dict:
+    """The ordered sum of one scatter's rows on the card: the kernel on
+    the rows as the route sorts them, against its plain version (the
+    CPU's ``index_add_`` on those rows) bit for bit, and the route
+    (``segments.index_add_float``) against the CPU's ``index_add_`` on
+    the rows in their own order, ``SEG_REPEATS`` calls. Timed: the bare
+    launch, the route, the plain version (CPU) and ``index_add_`` on the
+    card (the library call: the same sums, added in the order threads
+    arrive)."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import seg_sum, segments
+    kernel = seg_sum.seg_sum
+    cols = 1 if src.dim() == 1 else src.shape[1]
+    shape = (limit + 1,) if cols == 1 else (limit + 1, cols)
+    init = torch.zeros(shape, dtype=src.dtype)
+    want = init.clone().index_add_(0, index, src)[:limit]
+    idx_d, src_d = index.to(device), src.to(device)
+    for rep in range(SEG_REPEATS):
+        got = segments.index_add_float(init.clone().to(device), idx_d,
+                                       src_d, limit=limit)[:limit]
+        if not float_bits_equal(got, want):
+            raise AssertionError(f"ordered float sum ({what}) != the CPU's "
+                                 f"index_add_ on call {rep + 1}")
+    keep = idx_d < limit
+    slot, perm = torch.sort(idx_d[keep], stable=True)
+    vals = src_d[keep][perm].reshape(slot.shape[0], cols).contiguous()
+    out = init.clone().to(device).view(limit + 1, cols)
+    got = kernel(out.clone(), slot, vals)
+    plain = seg_sum.seg_sum_plain(out.cpu(), slot.cpu(), vals.cpu())
+    torch.cuda.synchronize()
+    err = float((got.cpu().double() - plain.double()).abs().max()) \
+        if got.numel() else 0.0
+    if not float_bits_equal(got, plain):
+        raise AssertionError(f"seg_sum kernel != plain ({what})")
+    slots = int(torch.unique_consecutive(slot).numel())
+    row = {"what": what, "n": limit, "M": int(slot.numel()),
+           "rows_in": int(index.numel()), "cols": cols,
+           "dtype": str(src.dtype), "slots": slots,
+           "longest_run": int(torch.unique_consecutive(
+               slot, return_counts=True)[1].max()) if slots else 0,
+           "max_abs_err": err, "calls_equal_cpu": SEG_REPEATS}
+    if timed:
+        row["ms"] = cuda_ms(lambda: kernel.launch(out, slot, vals), 10)
+        tgt = init.clone().to(device)
+        row["wrapper_ms"] = cuda_ms(lambda: segments.index_add_float(
+            tgt, idx_d, src_d, limit=limit), 5)
+        row["library_ms"] = cuda_ms(
+            lambda: tgt.index_add_(0, idx_d, src_d), 10)
+        oc, sc, vc = out.cpu(), slot.cpu(), vals.cpu()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            seg_sum.seg_sum_plain(oc, sc, vc)
+        row["plain_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        row["bound_ms"], row["bound_by"] = seg_sum_bound(
+            row["M"], cols, slots, src.element_size())
+        log(f"[kernel] seg_sum {what} (M={row['M']} rows of {cols}, "
+            f"{slots} slots, longest run {row['longest_run']}): "
+            f"{row['ms']:.3f} ms (bound {row['bound_ms']:.6f} ms, by "
+            f"{row['bound_by']}), the route {row['wrapper_ms']:.3f} ms, "
+            f"plain (CPU index_add_) {row['plain_ms']:.3f} ms, index_add_ "
+            f"on the card {row['library_ms']:.3f} ms")
+    log(f"[kernel] seg_sum {what}: bit-equal to its plain version, and "
+        f"the route to the CPU's index_add_ in {SEG_REPEATS} calls")
+    return row
+
+
+def phase_seg_sum(device) -> dict:
+    """Phase 2 for ``seg_sum``: synthetic scatters at the callers'
+    shapes (a collision-heavy one, most rows on three slots; a uniform
+    one; the corrector's (N, 21) quality sums; the paired estimators'
+    float64 moments), each bit-equal to its plain version and the whole
+    route to the CPU's ``index_add_``."""
+    import torch
+    rng = np.random.default_rng(16)
+    rows = []
+    for what, n, M, cols, share, hot, dtype, timed in (
+            ("collision-heavy", 1000, 4_000_000, 1, 0.7, 3, torch.float32,
+             True),
+            ("uniform", 1 << 22, 1 << 24, 1, 0.0, 1, torch.float32, True),
+            ("quality sums (N, 21)", 1 << 18, 1 << 20, 21, 0.1, 8,
+             torch.float32, False),
+            ("float64 moments (N, 3)", 1 << 16, 1 << 20, 3, 0.3, 5,
+             torch.float64, False)):
+        index, src = adversarial_rows(rng, n, M, cols, share, hot, dtype)
+        rows.append(seg_sum_row(device, index, src, n, what, timed))
+    return {"rows": rows}
+
+
+@contextlib.contextmanager
+def record_largest_float_sum():
+    """While open, ``segments.index_add_float`` keeps the inputs of its
+    largest call (by rows) on the card: yields a dict that then holds
+    (out as it was, index, src, limit)."""
+    from spades_for_blackbird_tpu_torch.ops import segments
+    seen = {}
+    original = segments.index_add_float
+
+    def recording(out, index, src, limit=None):
+        if out.is_cuda and index.numel() > seen.get("rows", -1):
+            seen.update(rows=index.numel(), args=(
+                out.clone(), index.clone(), src.clone(),
+                out.shape[0] if limit is None else limit))
+        return original(out, index, src, limit)
+    segments.index_add_float = recording
+    try:
+        yield seen
+    finally:
+        segments.index_add_float = original
+
+
+def main_path_sums(device, seen) -> dict:
+    """The largest float sum of phase 4's assembly (condense's coverage
+    sums) again: bit-equal to the CPU's ``index_add_`` in ``SEG_REPEATS``
+    calls, the kernel to its plain version, timed."""
+    out, index, src, limit = seen["args"]
+    del seen["args"]
+    if out.dim() != 1 or out.shape[0] != limit + 1 or out.abs().max() != 0:
+        raise AssertionError("the largest float sum is not a drop_scatter")
+    row = seg_sum_row(device, index.cpu(), src.cpu(), limit,
+                      f"k={FULL_K} condense", timed=True)
+    return row
+
+
+def careful_again(device, card_dirs, cpu_dir, argv) -> list[dict]:
+    """``--careful`` run on the card ``len(card_dirs)`` more times, each
+    against the CPU's one run: the same contigs, scaffolds, paths and GFA
+    segments, links and P-lines, bit for bit in the coverages too."""
+    from spades_for_blackbird_tpu_torch import cli
+    runs = []
+    for out in card_dirs:
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-o", out, "--device", str(device)])
+        if rc != 0:
+            raise AssertionError(f"--careful on the card returned {rc}")
+        wall = time.perf_counter() - t0
+        for name in ("contigs.fasta", "scaffolds.fasta", "contigs.paths",
+                     "scaffolds.paths", "assembly_graph_with_scaffolds.gfa"):
+            texts = [open(os.path.join(d, name)).read()
+                     for d in (out, cpu_dir)]
+            if texts[0] != texts[1]:
+                raise AssertionError(f"--careful card run "
+                                     f"{len(runs) + 2}: {name} differs "
+                                     f"from the CPU's")
+        runs.append({"gpu_s": wall})
+        log(f"[gpu-vs-cpu] 20 kb careful, card run {len(runs) + 1} of "
+            f"{CAREFUL_REPEATS}: byte-identical contigs, scaffolds, paths "
+            f"and GFA to the CPU's; {wall:.2f} s")
+    return runs
+
+
+def sums_gpu_vs_cpu(device) -> dict:
+    """Phase 3's float sums: ``drop_scatter`` on the card against the
+    CPU's bits, ``SEG_REPEATS`` calls, on a collision-heavy scatter (most
+    rows on a few slots, magnitudes of 2^-40 to 2^40)."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import segments
+    rng = np.random.default_rng(17)
+    n = 5000
+    index, src = adversarial_rows(rng, n, 2_000_000, 1, 0.9, 4,
+                                  torch.float32)
+    want = segments.drop_scatter(n, index, src)
+    idx_d, src_d = index.to(device), src.to(device)
+    for rep in range(SEG_REPEATS):
+        if not float_bits_equal(segments.drop_scatter(n, idx_d, src_d),
+                                want):
+            raise AssertionError(f"drop_scatter's float sum on the card != "
+                                 f"the CPU's on call {rep + 1}")
+    atomic = torch.zeros(n + 1, device=device).index_add_(0, idx_d, src_d)
+    differ = int((atomic[:n].cpu().view(torch.int32)
+                  != want.view(torch.int32)).sum())
+    log(f"[gpu-vs-cpu] drop_scatter float sum, 2,000,000 rows on {n} "
+        f"slots (90% on 4): the CPU's bits in {SEG_REPEATS} calls (the "
+        f"card's atomic index_add_ differs in {differ} slots)")
+    return {"rows": 2_000_000, "slots": n, "calls": SEG_REPEATS,
+            "atomic_slots_differing": differ}
+
+
+_LOG_LINE = re.compile(r"^\d\d:\d\d:\d\d  [A-Z]+ \[.*\n", re.M)
+_NUMBER = re.compile(r"-?\d+\.(\d+)")
+
+
+def same_text(a: str, b: str) -> bool:
+    """Two tool outputs agree: equal, or equal but for decimal numbers
+    within one unit of their last printed digit (a float printed with d
+    decimals is held to 10^-d)."""
+    if a == b:
+        return True
+    ta, tb = re.split(r"(\s+|,)", a), re.split(r"(\s+|,)", b)
+    if len(ta) != len(tb):
+        return False
+    for x, y in zip(ta, tb):
+        if x == y:
+            continue
+        mx, my = _NUMBER.fullmatch(x), _NUMBER.fullmatch(y)
+        if not (mx and my and len(mx.group(1)) == len(my.group(1))):
+            return False
+        if abs(float(x) - float(y)) > 1.01 * 10.0 ** -len(mx.group(1)):
+            return False
+    return True
+
+
+def tool_outputs(d: str) -> dict:
+    """The files a tool wrote under ``d`` (gzip members decompressed, a
+    save's archives left out), by relative path."""
+    import gzip
+    out = {}
+    for root, _, names in os.walk(d):
+        for n in names:
+            p = os.path.join(root, n)
+            rel = os.path.relpath(p, d)
+            if "saves" in rel.split(os.sep) or n in (
+                    "spades.log", "params.json", "spades_time_trace.json"):
+                continue
+            with open(p, "rb") as f:
+                data = f.read()
+            out[rel] = gzip.decompress(data) if n.endswith(".gz") else data
+    return out
+
+
+def cpu_tools(steps, root: str) -> dict:
+    """Tools on the CPU in one child process, one after another
+    (``cpu_tools_child``): {name: (rc, stdout, stderr, wall s)}. One
+    process for several tools saves each its interpreter's start."""
+    spec = os.path.join(root, f"cpu_tools_{steps[0][0]}.json")
+    with open(spec, "w") as f:
+        json.dump({"root": root, "steps": steps}, f)
+    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_RUN_THREADS))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; "
+         "chip_smoke.cpu_tools_child(sys.argv[1])", spec],
+        cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=CPU_RUN_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU's tools child failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(spec + ".out") as f:
+        return {name: tuple(r) for name, r in json.load(f).items()}
+
+
+def cpu_tools_child(spec_path: str) -> None:
+    """The child of ``cpu_tools``: each step's tool through ``tools.main``
+    with ``--device cpu``, its output captured, into root/<name>/cpu."""
+    import io
+    sys.path.insert(0, REPO)
+    from spades_for_blackbird_tpu_torch import tools
+    with open(spec_path) as f:
+        spec = json.load(f)
+    results = {}
+    for name, argv, stdin in spec["steps"]:
+        out = os.path.join(spec["root"], name, "cpu")
+        os.makedirs(out, exist_ok=True)
+        so, se = io.StringIO(), io.StringIO()
+        sys.stdin = io.StringIO("" if stdin is None
+                                else stdin.format(out=out))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = tools.main([a.format(out=out) for a in argv]
+                            + ["--device", "cpu"])
+        results[name] = (rc, so.getvalue(), se.getvalue(),
+                         time.perf_counter() - t0)
+    with open(spec_path + ".out", "w") as f:
+        json.dump(results, f)
+
+
+def card_tool(device, argv, stdin: str | None = None):
+    """A tool on the card in this process, its output captured, every
+    kernel's count at 0 before it: (rc, stdout, stderr, wall s,
+    {kernel: launches}, peak device bytes)."""
+    import io
+    import torch
+    from spades_for_blackbird_tpu_torch import tools
+    kernels = all_kernels()
+    out, err = io.StringIO(), io.StringIO()
+    saved_stdin = sys.stdin
+    sys.stdin = io.StringIO(stdin or "")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = tools.main(list(argv) + ["--device", str(device)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdin = saved_stdin
+    return (rc, out.getvalue(), err.getvalue(), wall,
+            {n: k.launches for n, k in kernels.items()},
+            torch.cuda.max_memory_allocated(device))
+
+
+def tools_inputs(d: str, rng) -> dict:
+    """Phase 3's inputs for the tools: a 20 kb genome with a repeat and a
+    planted 150-residue domain, FR pairs at 40x with qualities (and the
+    same reads in one file), noisy long reads, the domain's profile, a
+    scaffold with an N run, contigs with two wrong bases, two barcodes'
+    reads, a legacy save of the reads."""
+    from spades_for_blackbird_tpu_torch import cli
+    from spades_for_blackbird_tpu_torch.io import hmmfile
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.utils import simulate
+    os.makedirs(d, exist_ok=True)
+    genome = simulate.random_genome(TOOLS_GENOME, seed=5,
+                                    repeats=[(400, 2)])
+    dom = rng.integers(0, 20, 150).astype(np.uint8)
+    g = dna.encode_str(genome)
+    g[8000:8450] = reverse_translated(rng, dom)
+    genome = dna.decode_codes(g)
+    r1, q1, r2, q2 = simulate.simulate_paired_reads(
+        genome, 4000, read_len=100, insert_mean=300, insert_sd=25,
+        error_rate=0.002, seed=6)
+    p = {name: os.path.join(d, name) for name in (
+        "r1.fq", "r2.fq", "all.fq", "genome.fa", "long.fa", "dom.hmm",
+        "scaffolds.fa", "contigs.fa", "mag.fa", "bc", "save")}
+    simulate.write_fastq(p["r1.fq"], r1, q1)
+    simulate.write_fastq(p["r2.fq"], r2, q2)
+    simulate.write_fastq(p["all.fq"], r1 + r2, q1 + q2)
+    with open(p["genome.fa"], "w") as f:
+        f.write(f">chr\n{genome}\n>part\n{genome[3000:9000]}\n")
+    write_fasta_codes(p["long.fa"],
+                      long_reads(rng, g, 1.0, (300, 900), 0.08)
+                      + [rng.integers(0, 4, 800).astype(np.uint8)])
+    hmmfile.write_hmm_file(p["dom.hmm"], hmm_profiles([dom]))
+    with open(p["scaffolds.fa"], "w") as f:
+        f.write(f">scf1\n{genome[1000:3000]}{'N' * 50}"
+                f"{genome[3050:6000]}\n>scf2\n{genome[12000:15000]}\n")
+    bad = dna.encode_str(genome[5000:9000])
+    bad[[700, 2100]] = (bad[[700, 2100]] + 1) % 4
+    with open(p["contigs.fa"], "w") as f:
+        f.write(f">c1\n{dna.decode_codes(bad)}\n>c2\n{genome[:3000]}\n")
+    with open(p["mag.fa"], "w") as f:
+        f.write(f">m1\n{genome[2000:6000]}\n")
+    os.makedirs(p["bc"])
+    for name, lo in (("BC01", 0), ("BC02", 10_000)):
+        part = genome[lo:lo + 3000]
+        reads = [part[i:i + 100] for i in range(0, len(part) - 99, 10)]
+        with open(os.path.join(p["bc"], f"{name}.fasta"), "w") as f:
+            f.write("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    rc = cli.main(["-1", p["r1.fq"], "-2", p["r2.fq"], "-o", p["save"],
+                   "--only-assembler", "-k", "21", "--checkpoints", "all",
+                   "--stop-after", "read_conversion", "--device", "cpu"])
+    if rc != 0:
+        raise AssertionError("the tools' save run failed")
+    return p
+
+
+def tool_argvs(p: dict) -> list:
+    """(name, argv with ``{out}`` for the output directory, stdin) of
+    all 19 tools on phase 3's inputs; the graph tools read the GFA the
+    card's gbuilder wrote."""
+    gfa = os.path.join(p["card_gbuilder"], "g.gfa")
+    return [
+        ("gbuilder", ["gbuilder", p["all.fq"], "-k", "55", "--gfa",
+                      "{out}/g.gfa", "--fastg", "{out}/g.fastg",
+                      "--unitigs", "{out}/u.fasta"], None),
+        ("kmercount", ["kmercount", p["all.fq"], "-k", "21", "-o",
+                       "{out}/counts.tsv", "--min-count", "2"], None),
+        ("kmer-estimating", ["kmer-estimating", p["all.fq"], "-k", "21"],
+         None),
+        ("read-filter", ["read-filter", p["all.fq"], "-k", "21",
+                         "--min-coverage", "3", "-o", "{out}/kept.fa"],
+         None),
+        ("gsimplifier", ["gsimplifier", gfa, "{out}/simple.gfa"], None),
+        ("gmapper", ["gmapper", gfa, p["long.fa"], "--output-dir",
+                     "{out}/sp", "--output-format", "tsv,gpa,fasta"], None),
+        ("kmer-multiplicity-counter", [
+            "kmer-multiplicity-counter", p["r1.fq"], p["r2.fq"], "-k", "21",
+            "-o", "{out}/prof.npz"], None),
+        ("contig-abundance", ["contig-abundance", p["contigs.fa"],
+                              os.path.join(p["card_counter"], "prof.npz"),
+                              "-o", "{out}/abund.tsv", "--stat", "mean"],
+         None),
+        ("prop-binning", ["prop-binning", gfa, p["ann"], "-o",
+                          "{out}/prop.ann", "--reads", p["r1.fq"],
+                          "--reads-out-prefix", "{out}/binned"], None),
+        ("vis", ["vis", gfa], "stats\nedges 5\nedge 0\nseq 1 0 30\n"
+         "neigh 0 2\ndraw 0 2 {out}/n.dot\nhtml {out}/g.html\nquit\n"),
+        ("scf-correction", ["scf-correction", gfa, p["scaffolds.fa"], "-o",
+                            "{out}/scf.fa"], None),
+        ("unitig-coverage", ["unitig-coverage", gfa, p["r1.fq"], p["r2.fq"],
+                             "-o", "{out}/cov.tsv"], None),
+        ("cds-subgraphs", ["cds-subgraphs", gfa, "--hmms", p["dom.hmm"],
+                           "-o", "{out}/cds"], None),
+        ("mag-improve", ["mag-improve", gfa, p["mag.fa"], "-o",
+                         "{out}/mag.fa", "--radius", "2"], None),
+        ("bin-converter", ["bin-converter", os.path.join(
+            p["save"], "saves", "read_conversion"), "-o",
+            "{out}/reads.fastq.gz"], None),
+        ("corrector", ["corrector", p["contigs.fa"], p["r1.fq"], p["r2.fq"],
+                       "-o", "{out}/fixed.fa"], None),
+        ("truspades", ["truspades", "--input-dir", p["bc"], "-o", "{out}",
+                       "-k", "21"], None),
+        ("truseq-analysis", ["truseq-analysis", "--dataset", p["r1.fq"],
+                             p["r2.fq"], "--genome", p["genome.fa"], "-k",
+                             "55", "-o", "{out}/report"], None),
+        ("edge-positions", ["edge-positions", gfa, p["genome.fa"], "-o",
+                            "{out}/pos.tsv"], None),
+    ]
+
+
+def tools_gpu_vs_cpu(device) -> dict:
+    """Phase 3 for the tools: each of the 19 on the card (in this
+    process) and on the CPU (TOOLS_CPU_CHILDREN child processes, each
+    running its share of the tools one after another) on
+    a 20 kb genome: the same return code, the same files (gzip members
+    decompressed) and the same standard output and error (the loggers'
+    time-stamped lines and the output directory's path left out); a
+    number printed with d decimals may differ by 10^-d."""
+    from spades_for_blackbird_tpu_torch.graph.from_gfa import graph_from_gfa
+    from spades_for_blackbird_tpu_torch.graph.host import host_view
+    from spades_for_blackbird_tpu_torch.mts import binning
+    from spades_for_blackbird_tpu_torch.ops import dna
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    record = {}
+    try:
+        p = tools_inputs(os.path.join(tmp, "in"), np.random.default_rng(18))
+        # the graph tools read the card's GFA; contig-abundance the card's
+        # profile; prop-binning an annotation of the GFA's segments
+        steps = tool_argvs(dict(p, card_gbuilder="", card_counter="",
+                                ann=""))
+        # the graph: gbuilder's without the k-mers seen less than 3 times
+        first = {name: argv for name, argv, _ in steps[:1] + steps[6:7]}
+        first["gbuilder"] = first["gbuilder"][:4] + ["--min-count", "3"]
+        for name, key in (("gbuilder", "card_gbuilder"),
+                          ("kmer-multiplicity-counter", "card_counter")):
+            p[key] = os.path.join(tmp, "in", name)
+            os.makedirs(p[key])
+            rc = card_tool(device, [a.format(out=p[key])
+                                    for a in first[name]]
+                           + ["--gfa", os.path.join(p[key], "g.gfa")]
+                           * (name == "gbuilder"))
+            if rc[0] != 0:
+                raise AssertionError(f"{name} on the card returned {rc[0]}")
+        g, names = graph_from_gfa(os.path.join(p["card_gbuilder"], "g.gfa"),
+                                  return_names=True, device="cpu")
+        hv = host_view(g)
+        p["ann"] = os.path.join(tmp, "in", "bins.ann")
+        binning.write_annotation(p["ann"], {
+            name: ("BIN_A" if hv.seq_start[e] % 3 else "BIN_B")
+            for e, name in names.items() if hv.seq_len[e] > 300})
+        del g, hv
+        steps = tool_argvs(p)
+        with ThreadPoolExecutor(max_workers=TOOLS_CPU_CHILDREN) as pool:
+            parts = [pool.submit(cpu_tools, steps[i::TOOLS_CPU_CHILDREN],
+                                 tmp) for i in range(TOOLS_CPU_CHILDREN)]
+            owner = {name: i % TOOLS_CPU_CHILDREN
+                     for i, (name, _, _) in enumerate(steps)}
+            for name, argv, stdin in steps:
+                out = os.path.join(tmp, name, "cuda")
+                os.makedirs(out)
+                rc, so, se, wall, launches, peak = card_tool(
+                    device, [a.format(out=out) for a in argv],
+                    None if stdin is None else stdin.format(out=out))
+                crc, cso, cse, cwall = parts[
+                    owner[name]].result()[name]
+                cpu_out = os.path.join(tmp, name, "cpu")
+                if rc != 0 or crc != 0:
+                    raise AssertionError(f"tool {name}: card returned {rc}, "
+                                         f"CPU {crc}:\n{cse[-2000:]}")
+                outs = [tool_outputs(d) for d in (out, cpu_out)]
+                if sorted(outs[0]) != sorted(outs[1]):
+                    raise AssertionError(f"tool {name}: the card and the "
+                                         f"CPU wrote other files")
+                for f in outs[0]:
+                    a, b = outs[0][f], outs[1][f]
+                    if a != b and not (f.endswith((".tsv", ".fa", ".fasta",
+                                                   ".ann", ".gfa", ".dot",
+                                                   ".html", "report"))
+                                       and same_text(a.decode(),
+                                                     b.decode())):
+                        raise AssertionError(f"tool {name}: {f} differs "
+                                             f"between card and CPU")
+                texts = [(_LOG_LINE.sub("", x).replace(d, "<out>"))
+                         for x, d in ((so + se, out), (cso + cse, cpu_out))]
+                if not same_text(*texts):
+                    raise AssertionError(f"tool {name}: its output differs "
+                                         f"between card and CPU:\n"
+                                         f"{texts[0][-1000:]}\n---\n"
+                                         f"{texts[1][-1000:]}")
+                record[name] = {"files": sorted(outs[0]), "gpu_s": wall,
+                                "cpu_s": cwall, "launches": launches,
+                                "peak_bytes": int(peak)}
+                log(f"[gpu-vs-cpu] tool {name}: the same "
+                    f"{len(outs[0])} files and output on card and CPU; "
+                    f"card {wall:.2f} s ({launches}), cpu {cwall:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
+def covered_share(lines: list[str], name: str, length: int) -> float:
+    """The share of a sequence the ranges of an edge-positions dump
+    cover (``name`` its FASTA name)."""
+    cov = np.zeros(length + 1, np.int64)
+    for line in lines:
+        f = line.split("\t")
+        if len(f) > 2 and f[1] == name:
+            lo, hi = (int(x) for x in f[2].split("-"))
+            cov[lo] += 1
+            cov[min(hi, length)] -= 1
+    return float((np.cumsum(cov[:length]) > 0).mean())
+
+
+def phase_tools(device, tmp, inputs: dict) -> dict:
+    """Phase 16 (``run_tools``) with the plain extraction refused on the
+    card."""
+    with plain_extraction_refused():
+        return run_tools(device, tmp, inputs)
+
+
+def run_tools(device, tmp, inputs: dict) -> dict:
+    """Phase 16: the tools at full size, each through ``tools.main`` on
+    the card with every kernel's count at 0 before it (wall, peak
+    memory and launches printed): gbuilder -k 55 --min-count 3 on phase
+    8's reads (without the floor the read errors leave a graph of short
+    edges),
+    then gsimplifier, unitig-coverage and edge-positions on its GFA
+    (the ranges must cover POSITIONS_BAR of the genome); kmercount and
+    kmer-estimating at k = 21 (within HLL_TOLERANCE of the distinct
+    count); read-filter; gmapper with phase 15 (a)'s long reads on phase
+    15 (b)'s GFA (the aligned share printed, no floor); scf-correction
+    of phase 8's contigs with SCF_GAPS planted N runs (the gaps filled
+    printed); cds-subgraphs with phase 15 (b)'s profiles; prop-binning
+    (binning 1/BINNED_SHARE of the first mates),
+    kmer-multiplicity-counter and contig-abundance on phase 12's
+    community; then ``assemble_single_k`` with the max-flow EC remover
+    on phase 10's uneven reads (genome fraction >= SC_FRACTION, no
+    misassembly)."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.pipeline import assemble
+    from spades_for_blackbird_tpu_torch.simplify import runner
+    from spades_for_blackbird_tpu_torch.utils import assess
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d, exist_ok=True)
+    genome = inputs["genome"]
+    ref = os.path.join(d, "genome.fa")
+    with open(ref, "w") as f:
+        f.write(f">chr\n{genome}\n")
+    runs, record = {}, {}
+    t_phase = time.perf_counter()
+
+    def run(name, argv, stdin=None):
+        rc, so, se, wall, launches, peak = card_tool(device, argv, stdin)
+        so, se = _LOG_LINE.sub("", so), _LOG_LINE.sub("", se)
+        if rc != 0:
+            raise AssertionError(f"tool {name} returned {rc}:\n"
+                                 f"{(so + se)[-2000:]}")
+        runs[name] = {"wall_s": wall, "launches": launches,
+                      "peak_bytes": int(peak)}
+        log(f"[tools] {name}: {wall:.2f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, launches {launches}")
+        return so, se
+
+    mates = inputs["mates"]
+    gfa = os.path.join(d, "g.gfa")
+    so, _ = run("gbuilder", ["gbuilder", *mates, "-k", str(TOOLS_K),
+                             "--min-count", str(GBUILDER_MIN_COUNT),
+                             "--gfa", gfa])
+    log(f"[tools] gbuilder: {so.strip()}")
+    run("gsimplifier", ["gsimplifier", gfa, os.path.join(d, "simple.gfa")])
+    run("unitig-coverage", ["unitig-coverage", gfa, *mates, "-o",
+                            os.path.join(d, "cov.tsv")])
+    pos = os.path.join(d, "pos.tsv")
+    run("edge-positions", ["edge-positions", gfa, ref, "-o", pos])
+    with open(pos) as f:
+        share = covered_share(f.read().splitlines(), "chr", len(genome))
+    record["positions_share"] = share
+    log(f"[tools] edge-positions: the ranges cover {share:.5f} of the "
+        f"genome (bar {POSITIONS_BAR})")
+    if share < POSITIONS_BAR:
+        raise AssertionError(f"edge-positions covers {share:.5f} of the "
+                             f"genome, under {POSITIONS_BAR}")
+    _, se = run("kmercount", ["kmercount", *mates, "-k", str(KMERCOUNT_K),
+                              "-o", os.path.join(d, "counts.tsv")])
+    distinct = int(se.split()[0])
+    os.remove(os.path.join(d, "counts.tsv"))
+    so, _ = run("kmer-estimating", ["kmer-estimating", *mates, "-k",
+                                    str(KMERCOUNT_K)])
+    est = float(so.strip().splitlines()[-1])
+    rel = est / distinct - 1.0
+    record["hll"] = {"distinct": distinct, "estimate": est, "rel": rel}
+    log(f"[tools] kmer-estimating {est:.0f} against kmercount's "
+        f"{distinct} distinct {KMERCOUNT_K}-mers: {rel:+.4%} (bar "
+        f"{HLL_TOLERANCE:.0%})")
+    if abs(rel) > HLL_TOLERANCE:
+        raise AssertionError(f"kmer-estimating is {rel:+.2%} off")
+    _, se = run("read-filter", ["read-filter", *mates, "-k",
+                                str(KMERCOUNT_K), "-o",
+                                os.path.join(d, "kept.fa")])
+    record["read_filter"] = se.strip().splitlines()[-1]
+    os.remove(os.path.join(d, "kept.fa"))
+    _, se = run("gmapper", ["gmapper", inputs["bio_gfa"],
+                            inputs["long_reads"], "-o",
+                            os.path.join(d, "al.tsv")])
+    aligned, total = (int(x) for x in
+                      se.strip().splitlines()[-1].split()[1].split("/"))
+    record["gmapper_aligned"] = aligned / max(total, 1)
+    log(f"[tools] gmapper: {aligned} of {total} long reads aligned "
+        f"({aligned / max(total, 1):.4f}; no floor, ROADMAP Queue 3 "
+        f"item 14)")
+    # phase 8's contigs over 2 kb with a planted N run each
+    contigs = [s for s, _ in read_fasta(inputs["contigs"]) if len(s) > 2000]
+    scf = os.path.join(d, "scaffolds.fa")
+    with open(scf, "w") as f:
+        for i, s in enumerate(contigs[:SCF_GAPS]):
+            mid = len(s) // 2
+            f.write(f">s{i}\n{s[:mid]}{'N' * SCF_GAP_LEN}"
+                    f"{s[mid + SCF_GAP_LEN:]}\n")
+    fixed = os.path.join(d, "scf.fa")
+    _, se = run("scf-correction", ["scf-correction", gfa, scf, "-o", fixed])
+    filled = sum("N" not in s for _, s in fasta_records(fixed))
+    record["scf_gaps"] = {"planted": min(SCF_GAPS, len(contigs)),
+                          "filled": filled}
+    log(f"[tools] scf-correction: {filled} of {min(SCF_GAPS, len(contigs))}"
+        f" planted {SCF_GAP_LEN}-base N runs filled ({se.strip()})")
+    _, se = run("cds-subgraphs", ["cds-subgraphs", inputs["bio_gfa"],
+                                  "--hmms", inputs["hmms"], "-o",
+                                  os.path.join(d, "cds")])
+    record["cds"] = se.strip().splitlines()[-1]
+    log(f"[tools] cds-subgraphs: {record['cds']}")
+    meta = inputs["meta"]
+    # a share of the first mates is binned: the gzip of every bin's
+    # reads is most of the tool's time
+    binned_in = os.path.join(d, "to_bin.fastq")
+    with open(meta["mates"][0]) as src, open(binned_in, "w") as dst:
+        n_lines = sum(1 for _ in src)
+        src.seek(0)
+        dst.writelines(line for i, line in zip(
+            range(n_lines // 4 // BINNED_SHARE * 4), src))
+    _, se = run("prop-binning", ["prop-binning", meta["gfa"], meta["ann"],
+                                 "-o", os.path.join(d, "prop.ann"),
+                                 "--reads", binned_in,
+                                 "--reads-out-prefix",
+                                 os.path.join(d, "binned")])
+    record["prop_binning"] = [ln for ln in se.splitlines()
+                              if ln.startswith("bin ")]
+    prof = os.path.join(d, "prof.npz")
+    run("kmer-multiplicity-counter", ["kmer-multiplicity-counter",
+                                      *meta["mates"], "-k", "21", "-o", prof])
+    run("contig-abundance", ["contig-abundance", meta["contigs"], prof,
+                             "-o", os.path.join(d, "abund.tsv")])
+    for f in os.listdir(d):
+        if f.startswith("binned."):
+            os.remove(os.path.join(d, f))
+
+    # the max-flow EC remover on phase 10's uneven reads
+    sc_genome = inputs["sc_genome"]
+    codes = np.concatenate([load_codes(p) for p in inputs["sc_mates"]])
+    lengths = np.full(codes.shape[0], FULL_READ_LEN, np.int32)
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = assemble.assemble_single_k(
+        codes, lengths, FULL_K, device=device,
+        cfg=runner.SimplifyConfig(read_length=FULL_READ_LEN,
+                                  mfec_enabled=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["mfec_single_k"] = {
+        "wall_s": wall, "launches": {n: k.launches
+                                     for n, k in kernels.items()},
+        "peak_bytes": int(torch.cuda.max_memory_allocated(device))}
+    rep = assess.assess([s for s, _ in res.contigs], sc_genome)
+    record["mfec"] = rep.to_dict()
+    log(f"[tools] assemble_single_k k={FULL_K} mfec_enabled=True on phase "
+        f"10's uneven reads: {wall:.2f} s, launches "
+        f"{runs['mfec_single_k']['launches']}; {rep.n_contigs} contigs, "
+        f"genome fraction {rep.genome_fraction:.5f}, misassemblies "
+        f"{rep.misassemblies}")
+    if rep.genome_fraction < SC_FRACTION or rep.misassemblies != 0:
+        raise AssertionError(f"mfec missed the --sc bar: {rep.to_dict()}")
+    del res, codes
+    record["runs"] = runs
+    totals = {n: sum(r["launches"][n] for r in runs.values())
+              for n in all_kernels()}
+    log(f"[tools] launches over phase 16: {totals}")
+    for name in ("kmer_extract", "viterbi", "seg_sum"):
+        if totals[name] <= 0:
+            raise AssertionError(f"phase 16 never launched {name}")
+    if runs["cds-subgraphs"]["launches"]["viterbi"] <= 0:
+        raise AssertionError("cds-subgraphs never launched viterbi")
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[tools] phase 16: {record['wall_s']:.1f} s (budget "
+        f"{TOOLS_BUDGET_S:.0f} s)")
+    shutil.rmtree(d, ignore_errors=True)
+    return record
+
+
+def load_codes(path: str) -> np.ndarray:
+    from spades_for_blackbird_tpu_torch.io import fastq
+    return fastq.load_reads(path).codes
+
+
 def new_kernels():
     """{name: wrapper} of the hand kernels with no TPU counterpart."""
     from spades_for_blackbird_tpu_torch.ops import align, hmm
@@ -2651,8 +3456,9 @@ def new_kernels():
 
 
 def all_kernels():
-    from spades_for_blackbird_tpu_torch.ops import kmer_cuda
-    return dict(kmer_extract=kmer_cuda.extract_sort_keys, **new_kernels())
+    from spades_for_blackbird_tpu_torch.ops import kmer_cuda, seg_sum
+    return dict(kmer_extract=kmer_cuda.extract_sort_keys, **new_kernels(),
+                seg_sum=seg_sum.seg_sum)
 
 
 def ed_bound(a_len, b_len, L: int, band: int):
@@ -3358,7 +4164,7 @@ def phase_hybrid(device, tmp) -> dict:
     # (a) --nanopore, at full size and on the 1/20 cut
     record["nanopore"] = nanopore_run(device, tmp, genome, holes, holed,
                                       lr_path, bar=HOLES_BRIDGED_FULL)
-    for path in holed + [lr_path]:
+    for path in holed:
         os.remove(path)
     record["nanopore_cut"] = nanopore_cut(device, tmp)
 
@@ -3480,6 +4286,11 @@ def phase_hybrid(device, tmp) -> dict:
         f"{profiles[by_m[0]].length}- and {big.length}-node profiles")
     torch.cuda.empty_cache()
     record["bio"] = rec
+    # phase 16 takes the long reads, the profiles and this run's graph
+    record["files"] = {"long_reads": lr_path, "hmms": hmm_path,
+                       "bio_gfa": os.path.join(tmp, "bio_graph.gfa")}
+    shutil.copy(os.path.join(out, "assembly_graph_with_scaffolds.gfa"),
+                record["files"]["bio_gfa"])
     shutil.rmtree(out)
     for path in full:
         os.remove(path)
@@ -3647,6 +4458,31 @@ def new_kernel_lines(record: dict, runs: dict) -> list[dict]:
     }]
 
 
+def seg_sum_line(record: dict, runs: dict) -> dict:
+    """The kernels line's entry of seg_sum: launches on the main paths
+    (phase 4's assembly, phase 8's paired command, phase 15's command
+    lines and phase 16's tools), the largest difference from the plain
+    version over every comparison, timed on phase 4's largest float sum
+    (condense's coverage sums at k = 55)."""
+    main = record["full"]["seg_sum"]
+    compared = record["seg_sum"]["rows"] + [main]
+    sites = {"single_k": record["full"]["seg_launches"],
+             "paired_cli": record["paired"]["seg_launches"]}
+    sites.update({name: n["seg_sum"] for name, n in runs.items()})
+    return {
+        "name": "seg_sum", "route": "cuda", "source": SEG_SOURCE,
+        "replaces": SEG_REPLACES, "launches": sum(sites.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in compared),
+        "ms": main["ms"], "wrapper_ms": main["wrapper_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": {key: main[key] for key in ("n", "M", "cols", "dtype",
+                                               "slots", "longest_run")},
+        "synthetic": record["seg_sum"]["rows"],
+        "launch_sites": sites,
+    }
+
+
 def phase_build_alone(device) -> dict:
     return phase_build()
 
@@ -3655,7 +4491,10 @@ def phase_build_alone(device) -> dict:
 ALONE = {"build": (phase_build_alone, False),
          "kernel_vs_plain": (phase_kernel_vs_plain, False),
          "kernel_vs_plain_new": (phase_new_kernels, False),
+         "seg_sum": (phase_seg_sum, False),
          "gpu_vs_cpu": (phase_gpu_vs_cpu, False),
+         "sums_gpu_vs_cpu": (sums_gpu_vs_cpu, False),
+         "tools_gpu_vs_cpu": (tools_gpu_vs_cpu, False),
          "hybrid_gpu_vs_cpu": (hybrid_modes_gpu_vs_cpu, False),
          "metagenome": (phase_metagenome, True),
          "rna": (phase_rna, True),
@@ -3725,12 +4564,14 @@ def main(argv=None) -> int:
                                           phase_kernel_vs_plain, device)
         record["kernel_vs_plain_new"] = timed(
             "kernel_vs_plain_new", phase_new_kernels, device)
+        record["seg_sum"] = timed("seg_sum", phase_seg_sum, device)
         record["gpu_vs_cpu"] = timed("gpu_vs_cpu", phase_gpu_vs_cpu, device)
-        record["full"], (genome, codes, lengths, quals, graph) = \
+        record["full"], (genome, codes, lengths, quals, truth, graph) = \
             timed("full", phase_full, device)
         record["ladder"] = timed("ladder", phase_ladder, device)
         record["hammer"] = timed("hammer", phase_hammer, device, genome,
-                                 codes, lengths, quals)
+                                 codes, lengths, quals, truth)
+        del truth
         record["paired"] = timed("paired", phase_paired, device, genome,
                                  codes, lengths, quals, tmp)
         mates = record["paired"]["mates"]
@@ -3749,6 +4590,14 @@ def main(argv=None) -> int:
                                   codes, quals, tmp)
         record["rna"] = timed("rna", phase_rna, device, tmp)
         record["hybrid"] = timed("hybrid", phase_hybrid, device, tmp)
+        record["tools"] = timed("tools", phase_tools, device, tmp, {
+            "genome": genome, "mates": mates,
+            "contigs": os.path.join(record["paired"]["out"],
+                                    "contigs.fasta"),
+            "sc_genome": genome[:SC_GENOME],
+            "sc_mates": [os.path.join(tmp, f"sc_{m}.fastq") for m in (1, 2)],
+            "meta": record["metagenome"]["files"],
+            **record["hybrid"]["files"]})
     except Exception:  # any failed phase fails the smoke
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3804,6 +4653,8 @@ def main(argv=None) -> int:
                 "nanopore_cut_cli": hybrid["nanopore_cut"]["launches"],
                 "bio_cli": hybrid["bio"]["launches"],
                 "series_cli": hybrid["series"]["launches"]}
+    new_runs.update({f"tool_{name}": r["launches"] for name, r in
+                     record["tools"]["runs"].items()})
     sites.update({name: n["kmer_extract"] for name, n in new_runs.items()})
     # the main paths' runs; gap_closing, repeat_resolution,
     # careful_stage, restricted_in_simplify, second_phase and
@@ -3813,8 +4664,8 @@ def main(argv=None) -> int:
         "paired_cli", "correct_mismatches", "careful_cli", "sc_cli",
         "uneven_single_k", "restricted_single_k", "free_single_k",
         "gfa_input_cli", "meta_cli", "metaplasmid_cli", "metaviral_cli",
-        "plasmid_cli", "rna_cli", "rnaviral_cli", "nanopore_cli",
-        "nanopore_cut_cli", "bio_cli", "series_cli"))
+        "plasmid_cli", "rna_cli", "rnaviral_cli")) + sum(
+        n["kmer_extract"] for n in new_runs.values())
     log("kernel launches on the main paths: " + ", ".join(
         f"{name} {n}" for name, n in sites.items()))
     strand_row = next(r for r in rows if r.get("strand_ms") is not None
@@ -3851,7 +4702,8 @@ def main(argv=None) -> int:
                                         "strand_ms", "wrapper_ms",
                                         "plain_ms", "bound_ms", "bound_by")},
         "launch_sites": sites,
-    }] + new_kernel_lines(record, new_runs)}))
+    }] + new_kernel_lines(record, new_runs)
+        + [seg_sum_line(record, new_runs)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -53,7 +53,6 @@ from .io import fastq
 from .pipeline import assemble, spades_stages
 from .pipeline.config import config_for_mode
 from .pipeline.stages import PipelineContext, StageManager
-from .simplify import runner
 from .utils import logger as logmod
 from .utils import membudget, timetrace
 from .utils.device import resolve_device
@@ -295,13 +294,10 @@ def _run(args, device) -> int:
                        checkpoints=args.checkpoints, log=log, device=device)
     how = dict(continue_run=args.continue_run,
                restart_from=args.restart_from, stop_after=args.stop_after)
-    # refuse before any work what the port cannot finish: a user should
-    # not wait through three rungs to meet an option it lacks
+    # refuse a bad restart or stop stage before any work
     try:
-        planned = mgr.planned(**how)
-        if any(s.name in {f"k{k}" for k in ks} for s in planned):
-            runner.check_ported(cfg.simplify)
-    except (ValueError, NotImplementedError) as e:
+        mgr.planned(**how)
+    except ValueError as e:
         return _error(str(e))
 
     if args.trace_time:

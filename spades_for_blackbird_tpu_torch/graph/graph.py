@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 # config.info:180 flanking_range
@@ -181,3 +182,11 @@ def compact_graph(g: Graph) -> tuple[Graph, int]:
         k=g.k,
         flank=None if g.flank is None else padded(g.flank[ids], 0.0))
     return g2, v_space
+
+
+def edge_codes_host(g, e: int) -> np.ndarray:
+    """Edge ``e``'s sequence as a host code array, from a graph or its
+    host view (``graph/host.py``)."""
+    start, ln = int(g.seq_start[e]), int(g.seq_len[e])
+    flat = g.seq_flat[start:start + ln]
+    return flat.cpu().numpy() if isinstance(flat, torch.Tensor) else flat

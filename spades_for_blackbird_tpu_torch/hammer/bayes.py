@@ -153,7 +153,7 @@ def count_kmers_stats(codes: torch.Tensor, lengths: torch.Tensor,
     qv = _oriented_quals(_phred(quals), is_fwd, k)[perm]
     qual_sum = torch.zeros((NR + 1, k), dtype=torch.float32,
                            device=codes.device)
-    qual_sum.index_add_(0, gid, qv)
+    segments.index_add_float(qual_sum, gid, qv, limit=NR)
     qual_sum = torch.clamp(qual_sum[:NR], max=float(QUAL_CAP))
     return (counter.KmerTable(uniq, counts, num),
             KmerQualStats(total_lq=total_lq, qual_sum=qual_sum))
@@ -188,7 +188,8 @@ def _merge_stats_tables(a: counter.KmerTable, sa: KmerQualStats,
         N, gid, torch.cat([sa.total_lq, sb.total_lq])[perm])
     qs = torch.zeros((N + 1, sa.qual_sum.shape[1]), dtype=torch.float32,
                      device=dev)
-    qs.index_add_(0, gid, torch.cat([sa.qual_sum, sb.qual_sum])[perm])
+    segments.index_add_float(
+        qs, gid, torch.cat([sa.qual_sum, sb.qual_sum])[perm], limit=N)
     qs = torch.clamp(qs[:N], max=float(QUAL_CAP))
     return (counter.KmerTable(uniq, counts, num),
             KmerQualStats(total_lq=lq, qual_sum=qs))
@@ -246,8 +247,12 @@ def _accum_stats(hay: list[torch.Tensor], num: torch.Tensor,
     found, row, is_fwd = counter.lookup_windows(hay, num, codes, lengths, k)
     sidx = torch.where(found, row, total_lq.shape[0] - 1).reshape(-1)
     del found, row
-    total_lq.index_add_(0, sidx, _instance_lq(quals, k).reshape(-1))
-    qual_sum.index_add_(0, sidx, _oriented_quals(_phred(quals), is_fwd, k))
+    drop = total_lq.shape[0] - 1
+    segments.index_add_float(total_lq, sidx,
+                             _instance_lq(quals, k).reshape(-1), limit=drop)
+    segments.index_add_float(qual_sum, sidx,
+                             _oriented_quals(_phred(quals), is_fwd, k),
+                             limit=drop)
 
 
 def count_kmers_stats_chunked(codes, lengths, quals, k: int,
@@ -405,8 +410,9 @@ def subcluster_kmers(kmers: torch.Tensor, counts: torch.Tensor,
                               (vcid * max_l + assign)[:, None] * (k * 4)
                               + pos_base, drop)
             scores = torch.zeros(drop + 1, dtype=torch.float32, device=dev)
-            scores.index_add_(0, idx.reshape(-1),
-                              countsf[:, None].expand(N, k).reshape(-1))
+            segments.index_add_float(
+                scores, idx.reshape(-1),
+                countsf[:, None].expand(N, k).reshape(-1), limit=drop)
             scores = scores[:drop].view(N, max_l, k, 4)
             nonempty = scores.sum(dim=-1) > 0              # (N, max_l, k)
             centers = torch.where(nonempty, torch.argmax(scores, dim=-1),

@@ -13,13 +13,25 @@ unsigned order of the pair: that halves the number of passes.
 
 Out-of-range scatter indices, which JAX drops (``mode="drop"``), are sent
 to one extra slot past the end of the target and sliced off.
+
+Every float scatter-add goes through ``index_add_float``: on the CPU it
+is ``index_add_``, which adds a slot's terms in row order (the order of
+XLA's CPU scatter, which the parity tests rest on); on the card the
+rows aimed at no slot are dropped, the rest sorted by slot once (stable)
+and each slot's run added in row order by the ``seg_sum`` kernel
+(``ops/seg_sum.py``): the CPU's bits on every run, where the card's
+``index_add_`` adds in the order its threads arrive. Integer sums keep
+``index_add_``: integer adds are exact in any order.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .dna import WORD_MASK
+from .seg_sum import seg_sum
 
 _SIGN = -(1 << 63)  # int64 with only the sign bit set
 
@@ -127,7 +139,10 @@ def unique_counts(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor,
     if weights is None:
         weights = torch.ones(N, dtype=torch.int32, device=dev)
     counts = torch.zeros(N + 1, dtype=weights.dtype, device=dev)
-    counts.index_add_(0, scatter_gid, weights)
+    if weights.is_floating_point():
+        index_add_float(counts, scatter_gid, weights, limit=N)
+    else:
+        counts.index_add_(0, scatter_gid, weights)
     return uniq[:N], counts[:N], gid, num_unique
 
 
@@ -224,16 +239,57 @@ def count_sorted(keys: torch.Tensor, valid: torch.Tensor,
     return uniq, counts, num_unique
 
 
+def ordered_index_add_(out: torch.Tensor, index: torch.Tensor,
+                       src: torch.Tensor, limit: int | None = None
+                       ) -> torch.Tensor:
+    """``out.index_add_(0, index, src)`` with each slot's terms added in
+    row order from the slot's value, on any device: the rows whose index
+    is ``limit`` (default ``len(out)``) or more are dropped first, the
+    rest sorted by slot with a stable sort, and the sorted runs summed by
+    ``seg_sum``. Rows ``>= limit`` of ``out`` are left as they are.
+    ``out`` must be contiguous; ``src`` is (len(index), ...) like a row of
+    ``out``. Returns ``out``."""
+    n = out.shape[0] if limit is None else limit
+    keep = index < n
+    slot, perm = torch.sort(index[keep].to(torch.int64), stable=True)
+    vals = src[keep][perm]
+    cols = math.prod(out.shape[1:])
+    seg_sum(out.view(out.shape[0], cols), slot,
+            vals.reshape(slot.shape[0], cols))
+    return out
+
+
+def index_add_float(out: torch.Tensor, index: torch.Tensor,
+                    src: torch.Tensor, limit: int | None = None
+                    ) -> torch.Tensor:
+    """The float scatter-add of the port, in place: ``out.index_add_(0,
+    index, src)`` with the CPU's bits on every device. On the CPU it is
+    ``index_add_`` itself; on the card ``ordered_index_add_`` (which
+    raises for a dtype other than float32 or float64). Rows of ``out`` at
+    ``limit`` or past it are a caller's dropped slots, which it slices
+    off: the card does not sum them."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, src)
+    return ordered_index_add_(out, index, src, limit)
+
+
 def drop_scatter(n: int, index: torch.Tensor, src: torch.Tensor,
                  reduce: str = "sum", init=0) -> torch.Tensor:
     """(n,) tensor filled with ``init``, with ``src`` reduced into it at
     ``index`` ("sum", "amax" or "amin"). Index ``n`` is dropped, as JAX's
-    ``.at[index].add/max/min(src, mode="drop")`` drops it."""
+    ``.at[index].add/max/min(src, mode="drop")`` drops it: float sums
+    through ``index_add_float``; before a max or a min the dropped rows
+    are taken out, so their atomics do not queue on one slot."""
     out = torch.full((n + 1,), init, dtype=src.dtype, device=src.device)
     if reduce == "sum":
-        out.index_add_(0, index, src)
+        if src.is_floating_point():
+            index_add_float(out, index, src, limit=n)
+        else:
+            out.index_add_(0, index, src)
     else:
-        out.scatter_reduce_(0, index, src, reduce, include_self=True)
+        keep = index < n
+        out.scatter_reduce_(0, index[keep], src[keep], reduce,
+                            include_self=True)
     return out[:n]
 
 

@@ -212,7 +212,6 @@ def assemble_single_k(codes, lengths, k: int,
     read_length = int(codes.shape[1])
     if cfg is None:
         cfg = runner.SimplifyConfig(read_length=read_length)
-    runner.check_ported(cfg)
 
     loaded = (_load_phase_presimplify(phase_dir, k, device)
               if phase_dir else None)
@@ -290,6 +289,7 @@ def repeat_resolution(g, codes1, lengths1, codes2, lengths2,
 def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
                             lib_data_out: list | None = None,
                             scaffold_graph_out: dict | None = None,
+                            scaffolding_estimator: str | None = None,
                             long_reads=None,
                             paths_out: dict | None = None,
                             device=None):
@@ -315,7 +315,12 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
     LongReadsExtensionChooser, extenders_logic.cpp:469). Scaffolding
     takes its gap thresholds from the paired libraries alone: the JAX
     package reads the long-read library's insert size there, which it
-    has not, and raises (ROADMAP.md, Queue 3).
+    has not, and raises (ROADMAP.md, Queue 3). With
+    ``scaffolding_estimator="weighted"`` the scaffolder takes a separate
+    index from each paired library: the raw index snapped to graph path
+    lengths with the insert-size weight function
+    (``pair_info.weighted_cluster_distances``, the reference's
+    estimate_scaffolding_distance, distance_estimation.cpp:100-135).
     """
     device = resolve_device(device, g.seq_flat)
     g = g.to(device)
@@ -391,7 +396,12 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
         specs.append(resolver.LibSpec(
             clustered, is_stats=stats, read_length=read_length,
             kind=kind, coverage_share=share))
-        clustered_all.append(clustered)
+        if scaffolding_estimator == "weighted" and stats.histogram:
+            clustered_all.append(pair_info.weighted_cluster_distances(
+                hv, pi, stats.histogram, float(stats.median),
+                float(stats.deviation)))
+        else:
+            clustered_all.append(clustered)
     del idx
 
     if long_reads is not None:

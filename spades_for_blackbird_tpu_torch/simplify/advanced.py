@@ -21,17 +21,19 @@ PyTorch counterpart of the JAX package's ``simplify/advanced.py``
   ``MetaHiddenECRemover``, :499 ``HiddenECRemover``)
 - rnaSPAdes' mismatch-tip condition (tip_clipper.hpp:105) and
   low-complexity clippers (rna_simplification.hpp:10-18)
+- the max-flow EC remover (mf_ec_remover.hpp:357-501), which no mode
+  enables (``SimplifyConfig.mfec_enabled``)
 
 These cleaners walk small bounded neighbourhoods of the compacted graph
 on the host over a mutable NumPy view (``HostGraph``), as the JAX package
 does; only the device boundary differs: the alive rows are pulled with
-``.cpu()`` and the edited columns pushed back as tensors. Not ported:
-the max-flow EC remover, which no mode enables.
+``.cpu()`` and the edited columns pushed back as tensors.
 """
 
 from __future__ import annotations
 
 import heapq
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
@@ -1198,3 +1200,181 @@ def remove_low_complexity_short_edges(g: Graph, v_space: int,
             n += 1
     g2, vs = hv.to_graph()
     return g2, vs, n
+
+
+def remove_max_flow_ec(g: Graph, v_space: int, *,
+                       max_ec_length: int,
+                       uniqueness_length: int = 1500,
+                       plausibility_length: int = 200
+                       ) -> tuple[Graph, int, int]:
+    """Max-flow erroneous-connection removal (MaxFlowECRemover,
+    mf_ec_remover.hpp:357-501; run in the MDA topology block,
+    simplification.cpp:87).
+
+    Components hemmed by unique (>= uniqueness_length k-mers) edges are
+    modeled as a flow network: every plausible/unique edge entering the
+    component sources one unit at its head, every one leaving sinks one
+    unit at its tail, and inner non-unique edges carry capacity. When a
+    complete flow exists (all source and sink units shipped), suspicious
+    short non-tip edges whose endpoints land in different strongly
+    connected components of the residual network cannot carry any
+    max-flow unit and are removed. Lengths in k-mers; returns
+    (graph, v_space, n_removed).
+    """
+    hv = HostGraph(g, v_space)
+
+    def terminal(v: int) -> bool:
+        return len(hv.out_edges(v)) + len(hv.in_edges(v)) == 1
+
+    def is_tip(e: int) -> bool:
+        return terminal(int(hv.start_v[e])) or terminal(int(hv.end_v[e]))
+
+    def unique(e: int) -> bool:
+        return hv.len_k(e) >= uniqueness_length
+
+    def plausible(e: int) -> bool:
+        return hv.len_k(e) >= plausibility_length and not is_tip(e)
+
+    def suspicious(e: int) -> bool:
+        return hv.len_k(e) <= max_ec_length and not is_tip(e)
+
+    # LongEdgesExclusiveSplitter: vertex components over non-unique edges
+    parent: dict[int, int] = {}
+
+    def find(v: int) -> int:
+        r = v
+        while parent.setdefault(r, r) != r:
+            r = parent[r]
+        while parent[v] != r:
+            parent[v], v = r, parent[v]
+        return r
+
+    ids = [int(e) for e in np.nonzero(hv.alive)[0]]
+    for e in ids:
+        vs_, ve_ = int(hv.start_v[e]), int(hv.end_v[e])
+        find(vs_), find(ve_)
+        if not unique(e):
+            parent[find(vs_)] = find(ve_)
+    comps: dict[int, set[int]] = defaultdict(set)
+    for v in list(parent):
+        comps[find(v)].add(v)
+
+    S, T = "S", "T"
+    n_removed = 0
+    for comp in comps.values():
+        cap: dict[tuple, int] = defaultdict(int)
+        nodes = set(comp) | {S, T}
+        src_total = snk_total = 0
+        inner = []
+        for v in comp:
+            for e in hv.out_edges(v):
+                head = int(hv.end_v[e])
+                if not unique(e) and head in comp:
+                    cap[(v, head)] += 10000
+                    inner.append(e)
+                if plausible(e) or unique(e):
+                    cap[(v, T)] += 1  # ProcessSink
+                    snk_total += 1
+            for e in hv.in_edges(v):
+                if plausible(e) or unique(e):
+                    cap[(S, int(hv.end_v[e]))] += 1  # ProcessSource
+                    src_total += 1
+        # zero source/sink capacity still falls through: CheckCompleteFlow
+        # passes trivially (0 == 0) and the SCC colouring of the
+        # unmodified capacity graph removes acyclic suspicious edges in
+        # short-edge-only tangles, as in the reference (mf_ec_remover.hpp)
+        if not inner:
+            continue
+
+        flow: dict[tuple, int] = defaultdict(int)
+        adj: dict = defaultdict(set)
+        for (u, v) in cap:
+            adj[u].add(v)
+            adj[v].add(u)
+
+        def residual(u, v):
+            return cap[(u, v)] - flow[(u, v)] + flow[(v, u)]
+
+        total_flow = 0
+        while True:  # Edmonds-Karp (BFS augmenting paths)
+            prev = {S: None}
+            q = deque([S])
+            while q and T not in prev:
+                u = q.popleft()
+                for v in adj[u]:
+                    if v not in prev and residual(u, v) > 0:
+                        prev[v] = u
+                        q.append(v)
+            if T not in prev:
+                break
+            path, v = [], T
+            while v is not None:
+                path.append(v)
+                v = prev[v]
+            path.reverse()
+            aug = min(residual(a, b) for a, b in zip(path, path[1:]))
+            for a, b in zip(path, path[1:]):
+                back = min(flow[(b, a)], aug)
+                flow[(b, a)] -= back
+                flow[(a, b)] += aug - back
+            total_flow += aug
+        if total_flow != src_total or total_flow != snk_total:
+            continue  # CheckCompleteFlow failed: suspicious component
+
+        # SCC colouring of the residual network (iterative Tarjan)
+        succ = {u: [v for v in adj[u] if residual(u, v) > 0]
+                for u in nodes}
+        index: dict = {}
+        low: dict = {}
+        on_stack: set = set()
+        stack: list = []
+        colour: dict = {}
+        counter = [0]
+        ncol = [0]
+        for root in nodes:
+            if root in index:
+                continue
+            work = [(root, 0)]
+            while work:
+                u, pi = work.pop()
+                if pi == 0:
+                    index[u] = low[u] = counter[0]
+                    counter[0] += 1
+                    stack.append(u)
+                    on_stack.add(u)
+                recurse = False
+                kids = succ[u]
+                for i in range(pi, len(kids)):
+                    w = kids[i]
+                    if w not in index:
+                        work.append((u, i + 1))
+                        work.append((w, 0))
+                        recurse = True
+                        break
+                    if w in on_stack:
+                        low[u] = min(low[u], index[w])
+                if recurse:
+                    continue
+                if low[u] == index[u]:
+                    while True:
+                        w = stack.pop()
+                        on_stack.discard(w)
+                        colour[w] = ncol[0]
+                        if w == u:
+                            break
+                    ncol[0] += 1
+                if work:
+                    p = work[-1][0]
+                    low[p] = min(low[p], low[u])
+
+        for e in inner:
+            if not hv.alive[e] or not suspicious(e):
+                continue
+            if colour[int(hv.start_v[e])] != colour[int(hv.end_v[e])]:
+                hv.kill(e)
+                n_removed += 1
+
+    g2, vs = hv.to_graph()
+    if n_removed:
+        g2 = recondense(g2, vs)
+    return g2, vs, n_removed

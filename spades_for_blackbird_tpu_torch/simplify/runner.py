@@ -16,9 +16,8 @@ The post-simplification passes run in the reference's order: rna's
 low-complexity clippers, relative-coverage components (rcc), the
 relative-coverage edge disconnector (red), complex tips, path bulges,
 superbubbles, the final tip and bulge passes, the MDA topology block
-(tec, trec, isec, multiplicity counting) and the hidden-EC remover (her).
-The max-flow EC remover (mfec), which no mode enables, is not ported: a
-configuration that enables it raises ``NotImplementedError``.
+(tec, trec, isec, multiplicity counting), the max-flow EC remover (mfec,
+which no mode enables) and the hidden-EC remover (her).
 """
 
 from __future__ import annotations
@@ -41,10 +40,7 @@ _log = get_logger("Simplification")
 @dataclass
 class SimplifyConfig:
     """Simplification parameters (isolate-mode defaults of the reference,
-    configs/debruijn/simplification.info), as in the JAX package. The
-    switch of the max-flow EC remover stays, and raises
-    NotImplementedError when set; its tuning fields would come with the
-    pass."""
+    configs/debruijn/simplification.info), as in the JAX package."""
     read_length: int = 100
     # tip clipper cycle clauses: (tc_lb, cb_absolute_or_None=auto, rctc),
     # or with a fourth value, rna's mismatch-tip bound (mmm)
@@ -108,6 +104,12 @@ class SimplifyConfig:
     isec_max_ec_len_additive: int = 100
     isec_uniqueness_length: int = 1500
     isec_span_distance: int = 15000
+    # max-flow EC remover (mfec block, simplification.info:228-234;
+    # disabled by default in every reference mode, opt-in)
+    mfec_enabled: bool = False
+    mfec_max_ec_len_additive: int = 30  # max_ec_length_coefficient
+    mfec_uniqueness_length: int = 1500
+    mfec_plausibility_length: int = 200
     # hidden-EC removers (her block; sc enables plain, meta the meta kind)
     her_enabled: bool = False
     her_meta: bool = False
@@ -123,24 +125,6 @@ class SimplifyConfig:
     # read_length go regardless of coverage
     isolated_max_length: int | None = None
     isolated_max_coverage: float = 1e18
-    # the max-flow EC remover (mfec block, simplification.info:228-234;
-    # disabled in every reference mode) is not ported: setting it raises
-    mfec_enabled: bool = False
-
-
-# SimplifyConfig switches whose passes are not ported
-_UNPORTED = (
-    ("mfec_enabled", "max-flow EC remover (mfec)"),
-)
-
-
-def check_ported(cfg: SimplifyConfig) -> None:
-    """Raise for configuration branches the port does not run."""
-    for name, what in _UNPORTED:
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"SimplifyConfig.{name}: the {what} is not ported to "
-                f"PyTorch (ROADMAP.md, Queue 1, item 9)")
 
 
 def _tip_length(k: int, read_length: int, lb: float) -> int:
@@ -175,7 +159,6 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
     gluing (the blackbird fork's restricted edges,
     simplification.cpp:200-212); evaluated anew for every bulge pass,
     because recondensation renumbers edges."""
-    check_ported(cfg)
     k = g.k
     rl = cfg.read_length
     auto_cb = max(ec_bound, 1.0)
@@ -314,6 +297,14 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
                 g, v_space, n = remover(g, v_space, **kw)
                 if n:
                     g = recondense(g, v_space)
+
+    if cfg.mfec_enabled:
+        # MaxFlowRemoveErroneousEdges (simplification.cpp:87)
+        with device_scope("max_flow_ec", g.device):
+            g, v_space, n = advanced.remove_max_flow_ec(
+                g, v_space, max_ec_length=k + cfg.mfec_max_ec_len_additive,
+                uniqueness_length=cfg.mfec_uniqueness_length,
+                plausibility_length=cfg.mfec_plausibility_length)
 
     if cfg.her_enabled or cfg.her_meta:
         with device_scope("hidden_ec", g.device):

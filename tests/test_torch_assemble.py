@@ -1,6 +1,7 @@
 """The PyTorch port's single-K slice vs the JAX package, and the port's
 independence from JAX."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ torch.set_num_threads(1)
 
 from spades_for_blackbird_tpu.pipeline import (  # noqa: E402
     assemble as jassemble)
+from spades_for_blackbird_tpu.simplify import runner as jrunner  # noqa: E402
 from spades_for_blackbird_tpu.utils import logger as jlogger  # noqa: E402
 from spades_for_blackbird_tpu_torch import interop  # noqa: E402
 from spades_for_blackbird_tpu_torch.io import fasta  # noqa: E402
@@ -92,11 +94,22 @@ def test_contigs_fasta_and_min_length(tmp_path):
     {"cfg": runner.SimplifyConfig(mfec_enabled=True, red_enabled=True,
                                   superbubble_enabled=True)},
 ])
-def test_unported_options_raise(option):
-    codes, lengths = dna.encode_reads(["ACGT" * 15])
-    with pytest.raises(NotImplementedError):
-        assemble.assemble_single_k(codes, lengths, 21, device="cpu",
-                                   **option)
+def test_unported_options_raise(option, monkeypatch):
+    """The options the port once refused (the max-flow EC remover, alone
+    and beside red and superbubbles) now run, and give the JAX package's
+    contigs."""
+    monkeypatch.setenv("SFB_TPU_FORCE_SINGLE_DEVICE", "1")
+    _, codes, lengths = _genome_reads()
+    res = assemble.assemble_single_k(codes, lengths, 21, device="cpu",
+                                     **option)
+    jcfg = jrunner.SimplifyConfig(**{
+        f.name: getattr(option["cfg"], f.name)
+        for f in dataclasses.fields(option["cfg"])})
+    jres = jassemble.assemble_single_k(codes, lengths, 21, cfg=jcfg)
+    a, b = canonical(res.contigs), canonical(jres.contigs)
+    assert [s for s, _ in a] == [s for s, _ in b]
+    np.testing.assert_allclose([c for _, c in a], [c for _, c in b],
+                               rtol=COV_RTOL)
 
 
 @pytest.mark.parametrize("as_tensor", [False, True])

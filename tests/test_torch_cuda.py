@@ -514,3 +514,54 @@ def test_viterbi_batched_kernel_equals_plain(card, ms, lengths):
     assert torch.equal(es.view(torch.int32), pes.view(torch.int32))
     assert torch.equal(st, pst)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cols", [1, 21])
+def test_seg_sum_kernel_equals_plain(card, dtype, cols):
+    """The ordered float sum on the card equals the CPU's ``index_add_``
+    bit for bit, five calls in a row, with most rows on three slots and
+    magnitudes from 2^-60 to 2^60."""
+    from spades_for_blackbird_tpu_torch.ops import segments, seg_sum
+    rng = np.random.default_rng(cols)
+    n, M = 5000, 400_000
+    idx = rng.integers(0, n + 1, M)
+    hot = rng.random(M) < 0.7
+    idx[hot] = rng.integers(0, 3, hot.sum())
+    vals = rng.standard_normal((M, cols)) * np.exp2(
+        rng.integers(-60, 60, (M, cols)))
+    idx_t = torch.from_numpy(idx)
+    vals_t = torch.from_numpy(vals).to(dtype)
+    want = torch.zeros((n + 1, cols), dtype=dtype).index_add_(
+        0, idx_t, vals_t)[:n]
+    before = seg_sum.seg_sum.launches
+    for _ in range(5):
+        got = segments.index_add_float(
+            torch.zeros((n + 1, cols), dtype=dtype, device=card),
+            idx_t.to(card), vals_t.to(card), limit=n)[:n].cpu()
+        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert seg_sum.seg_sum.launches == before + 5
+
+
+@pytest.mark.cuda
+def test_tools_card_equals_cpu(card, tmp_path):
+    """gbuilder, kmercount and kmer-estimating on the card and on the
+    CPU: the same files and the same estimate."""
+    from spades_for_blackbird_tpu_torch import tools
+    genome = simulate.random_genome(20_000, seed=5, repeats=[(300, 2)])
+    r1, q1, r2, q2 = simulate.simulate_paired_reads(
+        genome, 3000, read_len=100, error_rate=0.002, seed=6)
+    fq = str(tmp_path / "r.fq")
+    simulate.write_fastq(fq, r1 + r2, q1 + q2)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        assert tools.main(["gbuilder", fq, "-k", "33", "--gfa",
+                           str(d / "g.gfa"), "--device", dev]) == 0
+        assert tools.main(["kmercount", fq, "-k", "21", "-o",
+                           str(d / "c.tsv"), "--device", dev]) == 0
+        outs[dev] = [(d / n).read_bytes() for n in ("g.gfa", "c.tsv")]
+    assert outs["cuda"] == outs["cpu"]

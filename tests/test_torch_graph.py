@@ -246,10 +246,20 @@ def test_simplification_pass_matches_jax(state, name):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="mfec"):
-        runner.check_ported(runner.SimplifyConfig(mfec_enabled=True))
-    # red, the mismatch-tip clause, the low-complexity clippers and
-    # superbubbles run
-    runner.check_ported(runner.SimplifyConfig(
-        red_enabled=True, low_complexity_enabled=True,
-        superbubble_enabled=True, tip_clauses=((1.5, 1.5, 2.0, 3),)))
+    """Every branch of SimplifyConfig is ported: the refusal of the
+    max-flow EC remover is gone, and the cycle with mfec (beside red,
+    the low-complexity clippers and superbubbles) gives the JAX
+    package's graph."""
+    assert not hasattr(runner, "check_ported")
+    codes, lengths = _reads(21)
+    kp1 = jcounter.trim_table(jcounter.count_kmers(
+        jnp.asarray(codes), jnp.asarray(lengths), 22))
+    vt = jext.trim_vertex_table(jext.build_vertex_table(kp1, 21))
+    jg, v_space = jgraph.compact_graph(jcondense.build_graph(kp1, vt, 21))
+    kw = dict(read_length=60, mfec_enabled=True, red_enabled=True,
+              low_complexity_enabled=True, superbubble_enabled=True)
+    out = runner.simplify_graph(port_graph(jg), v_space, 3.0,
+                                runner.SimplifyConfig(**kw))
+    jout = jrunner.simplify_graph(jg, v_space, 3.0,
+                                  jrunner.SimplifyConfig(**kw))
+    assert_graphs_equal(out, jout, cov_rtol=COV_RTOL)

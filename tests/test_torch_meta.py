@@ -193,11 +193,12 @@ def test_meta_simplification_cycle_matches_jax():
 
 
 def test_every_mode_config_matches_jax():
-    """Every overlay builds in the port with the JAX package's values;
-    only the max-flow EC remover is left out of the port's
-    SimplifyConfig, and no mode tunes it."""
-    port_fields = {f.name for f in dataclasses.fields(runner.SimplifyConfig)}
-    defaults = jrunner.SimplifyConfig()
+    """Every overlay builds in the port with the JAX package's values,
+    every field of SimplifyConfig (the max-flow EC remover's mfec_*
+    fields among them) included."""
+    port_fields = [f.name for f in dataclasses.fields(runner.SimplifyConfig)]
+    assert port_fields == [f.name for f in
+                           dataclasses.fields(jrunner.SimplifyConfig)]
     for mode in config.MODES:
         cfg, jcfg = config.config_for_mode(mode), \
             jconfig.config_for_mode(mode)
@@ -206,15 +207,9 @@ def test_every_mode_config_matches_jax():
                 assert getattr(cfg, f.name) == getattr(jcfg, f.name), \
                     (mode, f.name)
         for f in dataclasses.fields(jcfg.simplify):
-            want = getattr(jcfg.simplify, f.name)
-            if f.name in port_fields:
-                assert getattr(cfg.simplify, f.name) == want, (mode, f.name)
-            else:
-                assert f.name.startswith("mfec_")
-                assert want == getattr(defaults, f.name), (mode, f.name)
-        runner.check_ported(cfg.simplify)
-    assert runner._UNPORTED == (("mfec_enabled",
-                                 "max-flow EC remover (mfec)"),)
+            assert getattr(cfg.simplify, f.name) == getattr(
+                jcfg.simplify, f.name), (mode, f.name)
+    assert not hasattr(runner, "_UNPORTED")
 
 
 def _community(root):

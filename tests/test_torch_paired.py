@@ -32,7 +32,8 @@ from spades_for_blackbird_tpu_torch.mapping import (  # noqa: E402
 from spades_for_blackbird_tpu_torch.ops import dna  # noqa: E402
 from spades_for_blackbird_tpu_torch.paired import (  # noqa: E402
     insert_size, pair_info)
-from spades_for_blackbird_tpu_torch.pipeline import gap_closer  # noqa: E402
+from spades_for_blackbird_tpu_torch.pipeline import (  # noqa: E402
+    assemble, gap_closer)
 from spades_for_blackbird_tpu_torch.utils import simulate  # noqa: E402
 from test_torch_mapping import synthetic_graph  # noqa: E402
 
@@ -350,3 +351,87 @@ def test_without_a_card_the_gap_closer_refuses():
     g = interop.graph_from_numpy(fields, 21, "cpu")
     with pytest.raises(RuntimeError, match="CUDA card"):
         gap_closer.close_gaps(g, *reads)
+
+
+def test_single_placement_paired_index_matches_the_reference(lib):
+    """``fill_paired_index`` on each mate's first placement: e1, e2,
+    dist and the counts exact."""
+    j, _ = _stats(lib)
+    shift = int(round(j.median - lib["l2"].mean()))
+    theirs = jpair_info.fill_paired_index(
+        _first(lib["jch"][0], jmapper.ReadMapping),
+        _first(lib["jch"][1], jmapper.ReadMapping), jnp.int32(shift))
+    ours = pair_info.fill_paired_index(
+        _first(lib["pch"][0], mapper.ReadMapping),
+        _first(lib["pch"][1], mapper.ReadMapping), shift)
+    _, n = _same(ours, theirs)
+    assert n > 100
+
+
+def _clustered(lib):
+    """(stats, raw index of each package, the JAX package's clustered
+    index in both packages)."""
+    stats, shift, jraw, praw = _raw(lib)
+    jclu = jpair_info.cluster_distances(
+        jraw, jnp.int32(max(5, int(3 * stats.mad))))
+    pclu = interop.paired_index_from_numpy(
+        *(np.asarray(getattr(jclu, f)) for f in INDEX_FIELDS), jclu.num,
+        var=np.asarray(jclu.var))
+    return stats, jraw, praw, jclu, pclu
+
+
+def test_improve_pair_info_matches_the_reference(lib):
+    """The transitive closure on one clustered index: every field exact
+    (the added weights are the same float64 products rounded to
+    float32)."""
+    _, _, _, jclu, pclu = _clustered(lib)
+    theirs = jpair_info.improve_pair_info(jclu)
+    ours = pair_info.improve_pair_info(pclu)
+    _, n = _same(ours, theirs)
+    assert n > int(jclu.num)  # it added points
+
+
+def test_weighted_cluster_distances_matches_the_reference(lib):
+    """The weighted estimator with graph-distance snapping, each package
+    on its own raw index: e1, e2, dist exact; weight and var exact too
+    (the same float64 host arithmetic on equal inputs, rounded to
+    float32 once)."""
+    stats, jraw, praw, _, _ = _clustered(lib)
+    args = (stats.histogram, float(stats.median), float(stats.deviation))
+    theirs = jpair_info.weighted_cluster_distances(lib["jg"], jraw, *args)
+    ours = pair_info.weighted_cluster_distances(lib["g"], praw, *args)
+    _, n = _same(ours, theirs, INDEX_FIELDS + ("var",))
+    assert n > 5
+
+
+def test_weighted_scaffolding_estimator_gives_the_reference_scaffolds(
+        monkeypatch):
+    """``repeat_resolution_multi(scaffolding_estimator="weighted")``:
+    contigs, scaffolds and paths equal to the JAX package's."""
+    from test_torch_path_extend import _arrays, _library
+    monkeypatch.setenv("SFB_TPU_FORCE_SINGLE_DEVICE", "1")
+    jg, g = _path_extend_graphs()
+    libs = [_arrays(*_library(2400, 300, 58), "pe")]
+    outs = []
+    for run, graph, extra in ((jassemble.repeat_resolution_multi, jg, {}),
+                              (assemble.repeat_resolution_multi, g,
+                               {"device": "cpu"})):
+        paths = {}
+        contigs, scaffolds = run(graph, libs, with_scaffolds=True,
+                                 scaffolding_estimator="weighted",
+                                 paths_out=paths, **extra)
+        outs.append((contigs, scaffolds, paths))
+    jlogger.configure()
+    assert outs[1] == outs[0]
+    assert outs[1][1]
+
+
+def _path_extend_graphs():
+    """tests/test_torch_path_extend.py's k = 33 graph in both packages."""
+    from test_torch_path_extend import _library
+    r1, r2 = _library(3200, 300, seed=52)
+    codes, lengths = dna.encode_reads(r1 + r2)
+    jg = jassemble.assemble_single_k(codes, lengths, 33).graph
+    jlogger.configure()
+    return jg, interop.graph_from_numpy(
+        interop.fields_of(jg, interop.GRAPH_FIELDS), jg.k, "cpu")
