@@ -39,12 +39,14 @@ prints no result):
    ragged ones (lengths 0 and 1, a length difference past the band), and
    ragged pairs at bands 0, 1, 15, 16 and 511 (one to 32 slots a lane),
    bit-equal; ``viterbi`` at profile lengths 120, 300 and 512 (the warp
-   path) and 1,100 and 2,048 (the block path, one and two nodes a
-   thread), bit-equal at every position within a row's length, and
+   path), 1,100 and 2,048 (the block path, one and two nodes a
+   thread) and 2,049, 4,000 and 5,000 (the tile path: node tiles of
+   2,048), bit-equal at every position within a row's length, and
    batched: 12 profiles of 135-294 nodes over 12 ragged rows of up to
    3,000 positions in one call, bit-equal everywhere to the plain
    batched version on the rows cut to 400 positions; the bare launches
-   timed beside their bound and the plain versions;
+   timed beside their bound and the plain versions, the block and the
+   tile path a position;
 3. ``assemble_single_k`` at k=21 on a 20 kb simulated genome on the card
    and on the CPU: identical canonical contigs, coverages within
    rtol 1e-4 (float32 sums run in another order on the card); the
@@ -172,9 +174,10 @@ prints no result):
    walls; (b) phase 8's reads with ``--only-assembler --assembly-graph``
    on phase 8's GFA: return 0 and the quality bar on contigs and
    scaffolds;
-12. the metagenome, cut to half its size when phase 15 came and to
-   0.35 of it when phase 16 came (META_SCALE): four genomes of 0.7,
-   0.525, 0.35 and 0.175 Mb (2.0, 1.5, 1.0 and 0.5 Mb at first; seeds
+12. the metagenome, cut to half its size when phase 15 came, to 0.35
+   of it when phase 16 came and to 0.25 when the tile path and seg_sum's
+   new shapes came (META_SCALE): four genomes of 0.5, 0.375, 0.25 and
+   0.125 Mb (2.0, 1.5, 1.0 and 0.5 Mb at first; seeds
    21-24, GC 0.40, 0.50, 0.60, 0.45, phase 4's planted repeats) at
    80, 40, 20 and 8x, a 20 kb window of the first copied into the second
    with 1% substitutions, a 12 kb and a 60 kb circular plasmid at 10 and 3
@@ -198,8 +201,9 @@ prints no result):
    ``contigs.circular.fasta``;
 14. RNA at full size: (a) ``-1/-2 --rna --ss fr -k 49`` (one rung of the
    rna ladder: the coverage fit takes about 100 s a rung on this
-   spectrum) on stranded FR pairs (100 bp, insert 250 +- 25) of 1,500
-   simulated genes (2-6 exons, 1-3 isoforms skipping an exon, 10%
+   spectrum) on stranded FR pairs (100 bp, insert 250 +- 25) of 1,000
+   simulated genes (1,500 until the tile path and seg_sum's new shapes
+   came; 2-6 exons, 1-3 isoforms skipping an exon, 10%
    overlapping their neighbour antisense, log-normal expression, median
    20x), at most 2M pairs: return 0, the kernel launched inside
    ``ss_edge_split``, at least ``ISOFORM_BAR`` of the isoforms at >= 20x
@@ -212,7 +216,8 @@ prints no result):
 15. hybrid long reads, the HMM modes and the series analysis at full
    size, on phase 8's genome with 8 clusters of 3-5 reverse-translated
    domains (12 domains of 120-300 aa, 1-5 kb apart) planted, and its FR
-   pairs at 40x with qualities: (a) ``-1/-2 --nanopore`` with every
+   pairs at 40x with qualities: (a) ``-1/-2 --nanopore -k 55`` (the
+   ladder until the tile path and seg_sum's new shapes came) with every
    pair that has a mate in one of 24 holes of 400-1,000 bases dropped
    and long reads at 5x (2-20 kb, 10% errors split evenly between
    substitutions, insertions and deletions): return 0, genome fraction
@@ -224,7 +229,8 @@ prints no result):
    ROADMAP Queue 3, item 14); then the same on the 1/20 cut of this
    data (230 kb, no clusters): a quarter of the holes spanned at
    least, ``banded_ed`` launched; (b)
-   ``-1/-2 --bio --custom-hmms`` with the 12 profiles
+   ``-1/-2 --bio --custom-hmms -k 55`` (the ladder until then) with the
+   12 profiles
    (``hmm_from_consensus``, written with ``write_hmm_file``): return 0,
    every cluster in ``gene_clusters.fasta`` with its domains in order;
    one ``viterbi`` launch in each HMM stage (``extract_domains`` and
@@ -261,10 +267,17 @@ prints no result):
 
 The float sums of every phase run through the ``seg_sum`` kernel
 (``csrc/seg_sum.cu``: the rows of a scatter-add sorted by slot, each
-slot's run added in row order): phase 1 builds it, phase 2 holds it
-bit-equal to its plain version (the CPU's ``index_add_`` on the same
-rows) at synthetic shapes (most rows on three slots; uniform; the
-corrector's (N, 21) quality sums; float64 moments), phase 3 holds
+slot's run added in row order, short runs a thread from a tile in
+shared memory, long runs a block streaming them through a ring to one
+adding warp): phase 1 builds it, phase 2 times one thread's chain of
+dependent adds (the chain bound) and holds the kernel bit-equal to its
+plain version (the CPU's ``index_add_`` on the same rows), on the rows
+copied out in sorted order and read through the permutation, with
+int32 and int64 slots, at synthetic shapes (most rows on three slots;
+uniform; the corrector's (N, 21) quality sums; float64 moments; one
+run of 1.2 million rows; mixed run lengths at C = 21), each timed as
+the route launches it beside its byte and chain bounds, phase 3
+holds
 ``drop_scatter``'s float sum on the card to the CPU's bits in five calls
 on a collision-heavy scatter, runs the 20 kb ``--careful`` command
 three times on the card against the CPU's one run (byte-identical
@@ -329,7 +342,7 @@ RR_SCOPES = ("gc_build_index", "gc_map_reads", "rr_build_index",
              "rr_scaffold")
 FULL_GENOME = 4_600_000  # E. coli size, as scale_bench.py's 4.6 Mb run
 LADDER_GENOME = 500_000  # phase 6: the checkpointed ladder's cut size
-META_SCALE = 0.35       # phases 12 and 15 (c): the community's genomes cut
+META_SCALE = 0.25       # phases 12 and 15 (c): the community's genomes cut
 SC_GENOME = FULL_GENOME // 2  # phase 10: the genome's first half
 HAMMER_SCOPES = ("hammer_count", "hammer_cluster", "hammer_subcluster",
                  "hammer_expand", "hammer_vote")
@@ -342,7 +355,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12 / 2
 COV_RTOL = 1e-4
 # phase 3: the command lines' CPU runs, child processes beside the card's
-CPU_RUN_WIDTH = 5       # at once
+CPU_RUN_WIDTH = 6       # at once
 CPU_RUN_THREADS = 1     # each
 CPU_RUN_TIMEOUT = 900
 CAREFUL_ERRORS = 1000  # phase 9: bases planted in the k=55 graph
@@ -1968,6 +1981,29 @@ def hits_in(kmers: np.ndarray, table: np.ndarray) -> np.ndarray:
     return table[at] == kmers
 
 
+def kmer_pool(tables):
+    """Every table's k-mers (sorted sets) in one sorted array, beside
+    the table each came from and the tables' sizes."""
+    sizes = np.array([len(t) for t in tables], np.int64)
+    pool = np.concatenate(list(tables) + [np.zeros(0, np.int64)])
+    owner = np.repeat(np.arange(len(tables)), sizes)
+    order = np.argsort(pool, kind="stable")
+    return pool[order], owner[order], sizes
+
+
+def shared_counts(kmers: np.ndarray, pool, owner, n_tables: int):
+    """``len(kmers & table)`` for every table of a ``kmer_pool``
+    (``kmers`` a sorted set): what ``hits_in(kmers, table).sum()`` gives
+    table by table."""
+    lo = np.searchsorted(pool, kmers, "left")
+    n = np.searchsorted(pool, kmers, "right") - lo
+    total = int(n.sum())
+    if not total:
+        return np.zeros(n_tables, np.int64)
+    at = np.repeat(lo - (np.cumsum(n) - n), n) + np.arange(total)
+    return np.bincount(owner[at], minlength=n_tables)
+
+
 def assign_sources(seqs, tables: dict, stride: int = 8) -> list:
     """The source (a key of ``tables``: sorted k-mer sets) most of each
     sequence's sampled 21-mers come from, or None."""
@@ -2481,7 +2517,7 @@ def phase_plasmid(device, genome, codes, quals, tmp) -> dict:
             "plasmid_shares": shares}
 
 
-RNA_GENES = 1500
+RNA_GENES = 1000
 RNA_MAX_PAIRS = 2_000_000
 RNA_K = 49                # phase 14 (a): the last rung of the rna ladder
 ISOFORM_COVERAGE = 20.0   # isoforms graded: expressed at >= 20x
@@ -2569,15 +2605,18 @@ def phase_rna(device, tmp, scale: float = 1.0) -> dict:
         "ss_edge_split", "gap_closing", "repeat_resolution",
         "contig_output"])
     seqs = [s for s, _ in read_fasta(os.path.join(out, "contigs.fasta"))]
-    tables = [kmer_set(dna.encode_str(s)) for s in seqs]
+    pool, owner, sizes = kmer_pool([kmer_set(dna.encode_str(s))
+                                    for s in seqs])
     graded, held = 0, 0
     for iso, cov in isoforms:
         if cov * cut < ISOFORM_COVERAGE:
             continue
         graded += 1
         km = kmer_set(dna.encode_str(iso))
-        if any(hits_in(km, t).sum() >= ISOFORM_SHARE * len(km)
-               for t in tables if len(t) >= ISOFORM_SHARE * len(km)):
+        need = ISOFORM_SHARE * len(km)
+        # one contig of at least ``need`` k-mers holding ``need`` of them
+        if ((shared_counts(km, pool, owner, len(sizes)) >= need)
+                & (sizes >= need)).any():
             held += 1
     share = held / max(graded, 1)
     log(f"[rna] cli.main -1 -2 --rna --ss fr -k {RNA_K}: {wall:.2f} s, "
@@ -2671,6 +2710,10 @@ ED_BANDS = (0, 1, 15, 16, 48, 511)  # phase 2: one to 32 slots a lane
 VITERBI_BATCH_M = (135, 294)  # phase 2: the batched shape's profile
 #                               lengths, those of phase 15 (b)'s profiles
 VITERBI_BATCH_CUT = 400  # phase 2: positions the plain batched call runs
+# phase 2: (m, rows, L) past the block path's 2,048 nodes, and its largest
+VITERBI_LONG_CASES = ((2048, 3, 600), (2049, 3, 600), (4000, 3, 600),
+                      (5000, 3, 400))
+VITERBI_TIMED_M = (2048, 4000)  # timed a position: block and tile path
 HYBRID_HOLES = 24        # phase 15 (a): holes in the short reads
 HOLE_LEN = (400, 1000)
 LONG_COVERAGE = 5.0
@@ -2714,15 +2757,43 @@ BINNED_SHARE = 8        # phase 16: prop-binning bins 1/8 of the first mates
 TOOLS_BUDGET_S = 90.0   # phase 16's wall, reported against it
 
 
-def seg_sum_bound(M: int, C: int, slots: int, itemsize: int):
-    """(bound ms, what bounds it) of one ordered segment sum: the sorted
-    slots (8 bytes a row) and values read once, each touched slot's value
-    read and written once, against M * C adds at the float32 rate."""
-    nbytes = 8 * M + itemsize * M * C + 2 * itemsize * slots * C
+SEG_CHAIN_ADDS = 1 << 22  # the one-thread chain phase 2 times
+_CHAIN_NS = {}
+
+
+def add_latency_ns(dtype) -> float:
+    """ns of one dependent add (``__fadd_rn`` / ``__dadd_rn``) on the
+    card: one thread through SEG_CHAIN_ADDS adds (``seg_sum.add_chain``),
+    CUDA events, measured once a dtype a run."""
+    import torch
+    from spades_for_blackbird_tpu_torch.ops import seg_sum
+    if dtype not in _CHAIN_NS:
+        buf = torch.linspace(0.5, 1.5, 9, dtype=dtype, device="cuda")
+        ms = cuda_ms(lambda: seg_sum.seg_sum.add_chain(buf, SEG_CHAIN_ADDS),
+                     3)
+        _CHAIN_NS[dtype] = ms * 1e6 / SEG_CHAIN_ADDS
+        log(f"[kernel] seg_sum: one dependent {dtype} add takes "
+            f"{_CHAIN_NS[dtype]:.4f} ns (one thread, {SEG_CHAIN_ADDS} adds)")
+    return _CHAIN_NS[dtype]
+
+
+def seg_sum_bound(M: int, C: int, slots: int, itemsize: int,
+                  slot_bytes: int, longest: int, add_ns: float):
+    """(bound ms, what bounds it, the byte bound ms, the chain bound ms)
+    of one ordered segment sum over the M rows it keeps (the rows keyed
+    at the limit are skipped, not read): their sorted slots (with the
+    permutation
+    where the kernel reads through it: ``slot_bytes`` a row) and the rows
+    read once, each touched slot's value read and written once; against
+    the operations, which are a chain: the longest run's dependent adds
+    at ``add_ns`` each (the card's float32 rate over M * C adds is far
+    below that)."""
+    nbytes = slot_bytes * M + itemsize * M * C + 2 * itemsize * slots * C
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = M * C / FLOAT32_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+    chain_ms = max(longest * add_ns * 1e-6, M * C / FLOAT32_OPS_PER_S * 1e3)
+    return (max(bytes_ms, chain_ms),
+            "bytes" if bytes_ms >= chain_ms else "operations",
+            bytes_ms, chain_ms)
 
 
 def float_bits_equal(a, b) -> bool:
@@ -2752,13 +2823,17 @@ def adversarial_rows(rng, n: int, M: int, cols: int, hot_share: float,
 def seg_sum_row(device, index, src, limit: int, what: str,
                 timed: bool) -> dict:
     """The ordered sum of one scatter's rows on the card: the kernel on
-    the rows as the route sorts them, against its plain version (the
-    CPU's ``index_add_`` on those rows) bit for bit, and the route
+    the rows as the route sorts them and copies them out, and on the
+    unsorted rows read through the sort's permutation, each with the
+    sort's int32 slots and with the same slots as int64 (the keys of a
+    limit past 2^31), against its plain version (the CPU's ``index_add_``
+    on those rows) bit for bit, and the route
     (``segments.index_add_float``) against the CPU's ``index_add_`` on
     the rows in their own order, ``SEG_REPEATS`` calls. Timed: the bare
-    launch, the route, the plain version (CPU) and ``index_add_`` on the
-    card (the library call: the same sums, added in the order threads
-    arrive)."""
+    launch as the route makes it, the route, the plain version (CPU) and
+    ``index_add_`` on the card (the library call: the same sums, added in
+    the order threads arrive), beside the byte bound and the chain bound
+    of the rows the kernel sums (those below the limit)."""
     import torch
     from spades_for_blackbird_tpu_torch.ops import seg_sum, segments
     kernel = seg_sum.seg_sum
@@ -2773,26 +2848,41 @@ def seg_sum_row(device, index, src, limit: int, what: str,
         if not float_bits_equal(got, want):
             raise AssertionError(f"ordered float sum ({what}) != the CPU's "
                                  f"index_add_ on call {rep + 1}")
-    keep = idx_d < limit
-    slot, perm = torch.sort(idx_d[keep], stable=True)
-    vals = src_d[keep][perm].reshape(slot.shape[0], cols).contiguous()
+    slot, perm = segments.sorted_slots(idx_d, limit)
+    rows = src_d.reshape(len(index), cols)
+    vals = rows[perm]
     out = init.clone().to(device).view(limit + 1, cols)
-    got = kernel(out.clone(), slot, vals)
-    plain = seg_sum.seg_sum_plain(out.cpu(), slot.cpu(), vals.cpu())
-    torch.cuda.synchronize()
-    err = float((got.cpu().double() - plain.double()).abs().max()) \
-        if got.numel() else 0.0
-    if not float_bits_equal(got, plain):
-        raise AssertionError(f"seg_sum kernel != plain ({what})")
-    slots = int(torch.unique_consecutive(slot).numel())
+    plain = seg_sum.seg_sum_plain(out.clone().cpu(), slot.cpu(),
+                                  vals.cpu(), limit=limit)
+    err = 0.0
+    for keys in (slot, slot.to(torch.int64)):
+        got = kernel(out.clone(), keys, vals, limit=limit)
+        through = kernel(out.clone(), keys, rows, perm=perm, limit=limit)
+        if not (float_bits_equal(got, plain)
+                and float_bits_equal(through, plain)):
+            raise AssertionError(f"seg_sum kernel != plain ({what}, "
+                                 f"{keys.dtype} slots)")
+        if got.numel():
+            err = max(err, float((got.cpu().double() - plain.double())
+                                 .abs().max()))
+    kept = slot[slot < limit]
+    runs = torch.unique_consecutive(kept, return_counts=True)[1]
     row = {"what": what, "n": limit, "M": int(slot.numel()),
-           "rows_in": int(index.numel()), "cols": cols,
-           "dtype": str(src.dtype), "slots": slots,
-           "longest_run": int(torch.unique_consecutive(
-               slot, return_counts=True)[1].max()) if slots else 0,
+           "kept": int(kept.numel()), "cols": cols,
+           "dtype": str(src.dtype), "slot_dtype": str(slot.dtype),
+           "slots": int(runs.numel()),
+           "longest_run": int(runs.max()) if runs.numel() else 0,
+           "tile_rows": seg_sum.tile_rows(cols, src.dtype),
+           "long_runs": int((runs > seg_sum.tile_rows(cols, src.dtype))
+                            .sum()),
            "max_abs_err": err, "calls_equal_cpu": SEG_REPEATS}
     if timed:
-        row["ms"] = cuda_ms(lambda: kernel.launch(out, slot, vals), 10)
+        # the launch as the route makes it: rows of one value read through
+        # the permutation, wider rows copied out first
+        row["reads"] = "permutation" if cols == 1 else "copied rows"
+        row["ms"] = cuda_ms(
+            (lambda: kernel.launch(out, slot, rows, perm, limit)) if cols == 1
+            else (lambda: kernel.launch(out, slot, vals, None, limit)), 10)
         tgt = init.clone().to(device)
         row["wrapper_ms"] = cuda_ms(lambda: segments.index_add_float(
             tgt, idx_d, src_d, limit=limit), 5)
@@ -2800,42 +2890,79 @@ def seg_sum_row(device, index, src, limit: int, what: str,
             lambda: tgt.index_add_(0, idx_d, src_d), 10)
         oc, sc, vc = out.cpu(), slot.cpu(), vals.cpu()
         t0 = time.perf_counter()
-        for _ in range(3):
-            seg_sum.seg_sum_plain(oc, sc, vc)
-        row["plain_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-        row["bound_ms"], row["bound_by"] = seg_sum_bound(
-            row["M"], cols, slots, src.element_size())
+        seg_sum.seg_sum_plain(oc, sc, vc, limit=limit)
+        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        row["add_ns"] = add_latency_ns(src.dtype)
+        (row["bound_ms"], row["bound_by"], row["bytes_bound_ms"],
+         row["chain_bound_ms"]) = seg_sum_bound(
+            row["kept"], cols, row["slots"], src.element_size(),
+            slot.element_size() + (8 if cols == 1 else 0),
+            row["longest_run"], row["add_ns"])
         log(f"[kernel] seg_sum {what} (M={row['M']} rows of {cols}, "
-            f"{slots} slots, longest run {row['longest_run']}): "
-            f"{row['ms']:.3f} ms (bound {row['bound_ms']:.6f} ms, by "
-            f"{row['bound_by']}), the route {row['wrapper_ms']:.3f} ms, "
-            f"plain (CPU index_add_) {row['plain_ms']:.3f} ms, index_add_ "
-            f"on the card {row['library_ms']:.3f} ms")
-    log(f"[kernel] seg_sum {what}: bit-equal to its plain version, and "
-        f"the route to the CPU's index_add_ in {SEG_REPEATS} calls")
+            f"{row['kept']} kept on {row['slots']} slots, longest run "
+            f"{row['longest_run']}, {row['long_runs']} runs over "
+            f"{row['tile_rows']} rows): {row['ms']:.3f} ms reading "
+            f"{row['reads']} (bound {row['bound_ms']:.6f} ms, by "
+            f"{row['bound_by']}: bytes {row['bytes_bound_ms']:.6f} ms, "
+            f"chain {row['chain_bound_ms']:.6f} ms), the route "
+            f"{row['wrapper_ms']:.3f} ms, plain (CPU index_add_) "
+            f"{row['plain_ms']:.3f} ms, index_add_ on the card "
+            f"{row['library_ms']:.3f} ms")
+    log(f"[kernel] seg_sum {what}: bit-equal to its plain version with "
+        f"int32 and int64 slots, and the route to the CPU's index_add_ in "
+        f"{SEG_REPEATS} calls")
     return row
+
+
+def mixed_runs(rng, cols: int, dtype):
+    """Scatter rows whose runs mix every length: 60,000 slots of 1-8
+    rows, 2,000 of 50-500, 100 of 2,000-5,000 and 4 of 50,000, in a
+    shuffled row order, with 10% of the rows dropped. Returns (index,
+    values, limit) on the CPU."""
+    import torch
+    lens = np.concatenate([rng.integers(1, 9, 60_000),
+                           rng.integers(50, 501, 2_000),
+                           rng.integers(2_000, 5_001, 100),
+                           np.full(4, 50_000)])
+    n = len(lens)
+    idx = np.repeat(rng.permutation(n), lens)
+    idx[rng.random(len(idx)) < 0.1] = n
+    idx = idx[rng.permutation(len(idx))]
+    vals = rng.standard_normal((len(idx), cols)) * np.exp2(
+        rng.integers(-40, 40, (len(idx), cols)))
+    return (torch.from_numpy(idx),
+            torch.from_numpy(vals if cols > 1 else vals[:, 0]).to(dtype), n)
 
 
 def phase_seg_sum(device) -> dict:
     """Phase 2 for ``seg_sum``: synthetic scatters at the callers'
     shapes (a collision-heavy one, most rows on three slots; a uniform
     one; the corrector's (N, 21) quality sums; the paired estimators'
-    float64 moments), each bit-equal to its plain version and the whole
-    route to the CPU's ``index_add_``."""
+    float64 moments), one run of 1.2 million rows, and runs of mixed
+    lengths at C = 21, each bit-equal to its plain version and the whole
+    route to the CPU's ``index_add_``, each timed beside its byte and
+    chain bounds."""
     import torch
     rng = np.random.default_rng(16)
     rows = []
-    for what, n, M, cols, share, hot, dtype, timed in (
-            ("collision-heavy", 1000, 4_000_000, 1, 0.7, 3, torch.float32,
-             True),
-            ("uniform", 1 << 22, 1 << 24, 1, 0.0, 1, torch.float32, True),
+    for what, n, M, cols, share, hot, dtype in (
+            ("collision-heavy", 1000, 4_000_000, 1, 0.7, 3, torch.float32),
+            ("uniform", 1 << 22, 1 << 24, 1, 0.0, 1, torch.float32),
             ("quality sums (N, 21)", 1 << 18, 1 << 20, 21, 0.1, 8,
-             torch.float32, False),
+             torch.float32),
             ("float64 moments (N, 3)", 1 << 16, 1 << 20, 3, 0.3, 5,
-             torch.float64, False)):
+             torch.float64)):
         index, src = adversarial_rows(rng, n, M, cols, share, hot, dtype)
-        rows.append(seg_sum_row(device, index, src, n, what, timed))
-    return {"rows": rows}
+        rows.append(seg_sum_row(device, index, src, n, what, True))
+    rng = np.random.default_rng(161)
+    index, src = adversarial_rows(rng, 1000, 1_200_000, 1, 1.0, 1,
+                                  torch.float32)
+    rows.append(seg_sum_row(device, index, src, 1000, "one run", True))
+    index, src, n = mixed_runs(rng, 21, torch.float32)
+    rows.append(seg_sum_row(device, index, src, n,
+                            "mixed run lengths (N, 21)", True))
+    return {"rows": rows,
+            "add_ns": {str(k): v for k, v in _CHAIN_NS.items()}}
 
 
 @contextlib.contextmanager
@@ -3637,8 +3764,10 @@ def phase_new_kernels(device) -> dict:
     120 and 300 (the timed shape), 512 (the warp path's largest),
     1,100 and 2,048 (the block path), bit-equal within each row's length,
     and the batched shape: 12 profiles of 135-294 nodes over 12 ragged
-    rows in one call, bit-equal everywhere. CUDA events time the bare
-    launches beside the bound and the plain versions."""
+    rows in one call, bit-equal everywhere; past the block path, 2,049,
+    4,000 and 5,000 nodes (the tile path) beside 2,048, bit-equal within
+    each row's length, 2,048 and 4,000 timed a position. CUDA events
+    time the bare launches beside the bound and the plain versions."""
     import torch
     from spades_for_blackbird_tpu_torch.ops import align, hmm
     rng = np.random.default_rng(15)
@@ -3695,6 +3824,29 @@ def phase_new_kernels(device) -> dict:
                 f"(bound {row['bound_ms']:.6f} ms, by {row['bound_by']}), "
                 f"plain {row['plain_ms']:.3f} ms")
         log(f"[kernel] viterbi m={m} B={B} L={L}: max_abs_err={err}")
+        vit_rows.append(row)
+    # past the block path: m > 2,048 takes the tile path (node tiles of
+    # 2,048); the block path's largest m beside it, both timed a position
+    # (the launch lasts as long as the longest row, L positions)
+    rng_long = np.random.default_rng(151)
+    for m, B, L in VITERBI_LONG_CASES:
+        cons = rng_long.integers(0, 20, m).astype(np.uint8)
+        profile = hmm.hmm_from_consensus(f"c{m}", cons)
+        seqs, lengths = consensus_rows(rng_long, cons, B, L)
+        err = viterbi_rows_vs_plain(device, profile, seqs, lengths)
+        row = {"m": m, "B": B, "L": L, "max_abs_err": err,
+               "path": "tile" if m > hmm.BLOCK_MAX_M else "block"}
+        if m in VITERBI_TIMED_M:
+            row["ms"] = viterbi_batch_launch_ms(
+                device, [profile], *padded_as_ragged(seqs, lengths), 3)
+            row["us_a_position"] = row["ms"] * 1e3 / L
+            row["bound_ms"], row["bound_by"] = viterbi_bound(lengths, m, L)
+            log(f"[kernel] viterbi m={m} ({row['path']} path) B={B} L={L}: "
+                f"{row['ms']:.3f} ms, {row['us_a_position']:.3f} us a "
+                f"position (bound {row['bound_ms']:.6f} ms, by "
+                f"{row['bound_by']})")
+        log(f"[kernel] viterbi m={m} ({row['path']} path) B={B} L={L}: "
+            f"max_abs_err={err}")
         vit_rows.append(row)
     # the batched shape: every profile in one call over ragged rows
     ms = np.linspace(*VITERBI_BATCH_M, 12).astype(int)
@@ -4058,7 +4210,7 @@ def hybrid_reads(tmp, g, holes, rng, name: str):
 
 
 def nanopore_run(device, tmp, genome, holes, holed, lr_path, bar: float,
-                 label: str = "nanopore") -> dict:
+                 label: str = "nanopore", extra=()) -> dict:
     """``-1/-2 --nanopore`` on the holed pairs and the long reads: the
     wall, peak memory, each kernel's launches by stage, the joins of
     each hybrid stage, and for contigs and N-stripped scaffolds the
@@ -4068,7 +4220,7 @@ def nanopore_run(device, tmp, genome, holes, holed, lr_path, bar: float,
     from spades_for_blackbird_tpu_torch.utils import assess
     out = os.path.join(tmp, label)
     argv = ["-1", holed[0], "-2", holed[1], "--nanopore", lr_path, "-o", out,
-            "--checkpoints", "none", "--trace-time"]
+            "--checkpoints", "none", "--trace-time", *extra]
     with plain_extraction_refused():
         wall, launches, by_stage, peak = counted_cli(device, argv)
     stages, spans = stage_seconds(out, [
@@ -4163,7 +4315,8 @@ def phase_hybrid(device, tmp) -> dict:
 
     # (a) --nanopore, at full size and on the 1/20 cut
     record["nanopore"] = nanopore_run(device, tmp, genome, holes, holed,
-                                      lr_path, bar=HOLES_BRIDGED_FULL)
+                                      lr_path, bar=HOLES_BRIDGED_FULL,
+                                      extra=("-k", str(FULL_K)))
     for path in holed:
         os.remove(path)
     record["nanopore_cut"] = nanopore_cut(device, tmp)
@@ -4174,7 +4327,8 @@ def phase_hybrid(device, tmp) -> dict:
     hmmfile.write_hmm_file(hmm_path, profiles)
     out = os.path.join(tmp, "bio")
     argv = ["-1", full[0], "-2", full[1], "--bio", "--custom-hmms", hmm_path,
-            "-o", out, "--checkpoints", "none", "--trace-time"]
+            "-o", out, "--checkpoints", "none", "--trace-time", "-k",
+            str(FULL_K)]
     with plain_extraction_refused():
         wall, launches, by_stage, peak = counted_cli(device, argv)
     stages, spans = stage_seconds(out, [
@@ -4476,8 +4630,12 @@ def seg_sum_line(record: dict, runs: dict) -> dict:
         "ms": main["ms"], "wrapper_ms": main["wrapper_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "shape": {key: main[key] for key in ("n", "M", "cols", "dtype",
-                                               "slots", "longest_run")},
+        "bounds": {key: main[key] for key in ("bytes_bound_ms",
+                                                "chain_bound_ms", "add_ns")},
+        "shape": {key: main[key] for key in ("n", "M", "kept", "cols",
+                                               "dtype", "slot_dtype",
+                                               "slots", "longest_run",
+                                               "long_runs")},
         "synthetic": record["seg_sum"]["rows"],
         "launch_sites": sites,
     }
@@ -4488,10 +4646,15 @@ def phase_build_alone(device) -> dict:
 
 
 # the phases that need nothing of another: --only runs a few of them
+def phase_full_alone(device) -> dict:
+    return phase_full(device)[0]
+
+
 ALONE = {"build": (phase_build_alone, False),
          "kernel_vs_plain": (phase_kernel_vs_plain, False),
          "kernel_vs_plain_new": (phase_new_kernels, False),
          "seg_sum": (phase_seg_sum, False),
+         "full": (phase_full_alone, False),
          "gpu_vs_cpu": (phase_gpu_vs_cpu, False),
          "sums_gpu_vs_cpu": (sums_gpu_vs_cpu, False),
          "tools_gpu_vs_cpu": (tools_gpu_vs_cpu, False),

@@ -12,7 +12,8 @@ to ``viterbi_ends_plain``, which steps over the positions in PyTorch with
 the JAX package's float32 operations in its order (the delete chain's
 max-plus scan as ``torch.cummax``, whose ties go to the later node as
 the JAX package's combine does). A CUDA tensor launches the hand kernel
-``csrc/viterbi.cu`` (a warp a row up to 512 nodes, a block above, the
+``csrc/viterbi.cu`` (a warp a row up to 512 nodes, a block above, over
+node tiles of 2,048 past 2,048 nodes, so a profile of any length; the
 recursion over the row's positions in one launch); a failed build or
 launch raises. Both take ``cdd = cumsum(tDD)`` from the host
 (``cumulative_delete``), summed in float32 in order, so the card and the
@@ -38,7 +39,8 @@ from .aa import NUM_AA, STOP
 from .cuda_build import CudaLibrary
 
 NEG = -1.0e30
-MAX_M = 2048  # nodes the kernel takes: two a thread, 1024 threads
+BLOCK_MAX_M = 2048  # nodes of the block path: two a thread, 1024
+#                    threads; longer profiles walk node tiles of this size
 WARP_MAX_M = 512  # nodes of the warp path: 16 a lane
 FREE_SHARE = 4  # a batched call's outputs take at most 1/4 of free memory
 
@@ -170,9 +172,11 @@ def viterbi_ends_plain(match, tMM, tMI, tMD, tIM, tII, tDM, cdd,
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sfb_viterbi_batched.restype = i
-    lib.sfb_viterbi_batched.argtypes = [p, p, i, p, p, p, i, i, p, i, i, p,
-                                        ll, p, p, p, i, ll, p, p, p,
-                                        ctypes.POINTER(i)]
+    lib.sfb_viterbi_batched.argtypes = [p, p, i, p, p, p, i, i, p, i, i,
+                                        p, i, i, p, i, p, ll, p, p, p, i,
+                                        ll, p, p, p, ctypes.POINTER(i)]
+    lib.sfb_viterbi_tile_slots.restype = i
+    lib.sfb_viterbi_tile_slots.argtypes = [ctypes.POINTER(i)]
     lib.sfb_viterbi_error.restype = ctypes.c_char_p
     lib.sfb_viterbi_error.argtypes = [i]
 
@@ -183,8 +187,9 @@ class ProfilePack:
     batched Viterbi call takes. ``matchT`` (21, sum m) and ``trans`` (7,
     sum m: tMM, tMI, tMD, tIM, tII, tDM, cdd) float32; ``meta`` (P, 2)
     int32 (node offset, m) and ``tbm`` (P,) float32 beside them; the
-    profiles of the warp path (m <= WARP_MAX_M, ``npl`` nodes a lane) and
-    of the block path (``block_m`` their largest m) as int32 index
+    profiles of the warp path (m <= WARP_MAX_M, ``npl`` nodes a lane), of
+    the block path (m <= BLOCK_MAX_M, ``block_m`` their largest m) and of
+    the tile path (longer, ``tile_m`` their largest m) as int32 index
     tensors."""
     matchT: torch.Tensor
     trans: torch.Tensor
@@ -195,6 +200,8 @@ class ProfilePack:
     npl: int
     block_ids: torch.Tensor
     block_m: int
+    tile_ids: torch.Tensor
+    tile_m: int
 
     @property
     def count(self) -> int:
@@ -220,7 +227,9 @@ def _pack(matchT, trans, lengths, device) -> ProfilePack:
         return torch.tensor(sel, dtype=torch.int32, device=device)
     offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
     warp = [p for p, m in enumerate(lengths) if m <= WARP_MAX_M]
-    block = [p for p, m in enumerate(lengths) if m > WARP_MAX_M]
+    block = [p for p, m in enumerate(lengths)
+             if WARP_MAX_M < m <= BLOCK_MAX_M]
+    tile = [p for p, m in enumerate(lengths) if m > BLOCK_MAX_M]
     return ProfilePack(
         matchT=matchT, trans=trans,
         meta=torch.tensor(np.stack([offsets, lengths], 1).astype(np.int32)
@@ -231,15 +240,18 @@ def _pack(matchT, trans, lengths, device) -> ProfilePack:
         warp_ids=ids(warp),
         npl=max((_nodes_a_lane(lengths[p]) for p in warp), default=0),
         block_ids=ids(block),
-        block_m=max((lengths[p] for p in block), default=0))
+        block_m=max((lengths[p] for p in block), default=0),
+        tile_ids=ids(tile),
+        tile_m=max((lengths[p] for p in tile), default=0))
 
 
 def pack_profiles(profiles, device) -> ProfilePack:
-    """The profiles as one ``ProfilePack`` on ``device``."""
+    """The profiles as one ``ProfilePack`` on ``device``; a profile of
+    any length m >= 1."""
     lengths = [p.length for p in profiles]
     for m in lengths:
-        if not 1 <= m <= MAX_M:
-            raise ValueError(f"model length {m} outside 1..{MAX_M}")
+        if m < 1:
+            raise ValueError(f"model length {m}: a profile has a node")
     matchT = torch.from_numpy(np.ascontiguousarray(np.concatenate(
         [np.asarray(p.match, np.float32) for p in profiles]).T))
     trans = torch.from_numpy(np.stack([np.concatenate(
@@ -289,7 +301,8 @@ class ViterbiKernel:
     length get start 0; ``batched`` has the contract of
     ``viterbi_batched_plain``. ``launches`` counts the kernels launched
     (in ``launch_batched``; CPU calls do not count): one a batch of
-    profiles, two where it holds profiles of both paths."""
+    profiles, up to three where it holds profiles of the warp, the block
+    and the tile path."""
 
     def __init__(self):
         self.launches = 0
@@ -310,8 +323,8 @@ class ViterbiKernel:
                 or lengths.device != seqs.device):
             raise ValueError(f"lengths must be ({B},) int32 on "
                              f"{seqs.device}")
-        if not 1 <= m <= MAX_M:
-            raise ValueError(f"model length {m} outside 1..{MAX_M}")
+        if m < 1:
+            raise ValueError(f"model length {m}: a profile has a node")
         if tuple(match.shape) != (m, NUM_AA + 1):
             raise ValueError(f"match must be ({m}, {NUM_AA + 1})")
         matchT = match.t().contiguous().to(seqs.device, torch.float32)
@@ -366,6 +379,7 @@ class ViterbiKernel:
         allocates the outputs (P, N)."""
         lib = self.library.load()
         kernels = ctypes.c_int(0)
+        scratch, slots = _tile_scratch(lib, pack, seqs.device)
         with torch.cuda.device(seqs.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.sfb_viterbi_batched(
@@ -373,7 +387,9 @@ class ViterbiKernel:
                 pack.matchT.shape[1], pack.meta.data_ptr(),
                 pack.tbm.data_ptr(), pack.warp_ids.data_ptr(),
                 len(pack.warp_ids), pack.npl, pack.block_ids.data_ptr(),
-                len(pack.block_ids), pack.block_m, seqs.data_ptr(),
+                len(pack.block_ids), pack.block_m, pack.tile_ids.data_ptr(),
+                len(pack.tile_ids), pack.tile_m, scratch.data_ptr(), slots,
+                seqs.data_ptr(),
                 seqs.numel(), row_off.data_ptr(), row_len.data_ptr(),
                 order.data_ptr(), row_len.shape[0], es.shape[-1],
                 es.data_ptr(), st.data_ptr(), stream, ctypes.byref(kernels))
@@ -381,6 +397,26 @@ class ViterbiKernel:
         if err:
             raise RuntimeError("viterbi launch failed: "
                                + lib.sfb_viterbi_error(err).decode())
+
+
+def _tile_scratch(lib, pack: ProfilePack, device):
+    """(scratch, slots): the tile path's node state, int32, 6 values a
+    node of ``pack.tile_m`` rounded up to whole tiles for each of
+    ``slots`` blocks (as many as the card holds at once, which the
+    kernel's library reports); an empty tensor and 0 slots without a
+    profile on that path."""
+    if not len(pack.tile_ids):
+        return torch.empty(0, dtype=torch.int32, device=device), 0
+    slots = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sfb_viterbi_tile_slots(ctypes.byref(slots))
+    if err:
+        raise RuntimeError("viterbi tile slots failed: "
+                           + lib.sfb_viterbi_error(err).decode())
+    slots = slots.value
+    mcap = -(-pack.tile_m // BLOCK_MAX_M) * BLOCK_MAX_M
+    return torch.empty(slots * 6 * mcap, dtype=torch.int32,
+                       device=device), slots
 
 
 def _aligned(seqs: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,10 @@ to one extra slot past the end of the target and sliced off.
 Every float scatter-add goes through ``index_add_float``: on the CPU it
 is ``index_add_``, which adds a slot's terms in row order (the order of
 XLA's CPU scatter, which the parity tests rest on); on the card the
-rows aimed at no slot are dropped, the rest sorted by slot once (stable)
-and each slot's run added in row order by the ``seg_sum`` kernel
-(``ops/seg_sum.py``): the CPU's bits on every run, where the card's
+rows are sorted by slot once (stable, int32 keys, the rows aimed at no
+slot keyed last) and each slot's run added in row order by the
+``seg_sum`` kernel (``ops/seg_sum.py``), which skips the dropped run:
+the CPU's bits on every run, where the card's
 ``index_add_`` adds in the order its threads arrive. Integer sums keep
 ``index_add_``: integer adds are exact in any order.
 """
@@ -239,23 +240,43 @@ def count_sorted(keys: torch.Tensor, valid: torch.Tensor,
     return uniq, counts, num_unique
 
 
+def sorted_slots(index: torch.Tensor, n: int):
+    """(slot, perm): ``index`` sorted by a stable sort (row order kept
+    within a slot) and the permutation that sorts it. A row aimed at
+    ``n`` or past it is keyed ``n``, so every dropped row sorts last. The
+    keys are int32 while ``n < 2**31`` (half the radix passes of int64
+    keys), int64 above."""
+    if n < 2 ** 31:
+        keys = index.clamp(max=n).to(torch.int32)
+    else:
+        keys = index.to(torch.int64).clamp(max=n)
+    return torch.sort(keys, stable=True)
+
+
 def ordered_index_add_(out: torch.Tensor, index: torch.Tensor,
                        src: torch.Tensor, limit: int | None = None
                        ) -> torch.Tensor:
     """``out.index_add_(0, index, src)`` with each slot's terms added in
-    row order from the slot's value, on any device: the rows whose index
-    is ``limit`` (default ``len(out)``) or more are dropped first, the
-    rest sorted by slot with a stable sort, and the sorted runs summed by
-    ``seg_sum``. Rows ``>= limit`` of ``out`` are left as they are.
-    ``out`` must be contiguous; ``src`` is (len(index), ...) like a row of
-    ``out``. Returns ``out``."""
+    row order from the slot's value, on any device: the rows are sorted
+    by slot (``sorted_slots``) and ``seg_sum`` adds the sorted runs below
+    ``limit`` (default ``len(out)``); the rows aimed at ``limit`` or past
+    it are dropped, and rows ``>= limit`` of ``out`` are left as they
+    are. ``out`` must be contiguous; ``src`` is (len(index), ...) like a
+    row of ``out``. Returns ``out``.
+
+    Rows of one value are read by the kernel through the sort's
+    permutation; rows of several values are copied out in sorted order
+    first (``index_select``), so that the kernel's long runs stream
+    contiguous rows. On the card each is the faster of the two there
+    (PERF.md, section 6)."""
     n = out.shape[0] if limit is None else limit
-    keep = index < n
-    slot, perm = torch.sort(index[keep].to(torch.int64), stable=True)
-    vals = src[keep][perm]
+    slot, perm = sorted_slots(index, n)
     cols = math.prod(out.shape[1:])
-    seg_sum(out.view(out.shape[0], cols), slot,
-            vals.reshape(slot.shape[0], cols))
+    rows = src.reshape(index.shape[0], cols)
+    if cols == 1:
+        seg_sum(out.view(out.shape[0], 1), slot, rows, perm=perm, limit=n)
+    else:
+        seg_sum(out.view(out.shape[0], cols), slot, rows[perm], limit=n)
     return out
 
 

@@ -129,6 +129,64 @@ def test_viterbi_ends_matches_jax(m, L, kind):
                 jhmm.find_hits(jes[b], jst[b], int(n), thr, span))
 
 
+@pytest.mark.parametrize("m", [2049, 5003])
+def test_viterbi_ends_matches_jax_past_the_block_path(m):
+    """Profiles longer than the block path's 2,048 nodes (on the card the
+    tile path walks node tiles) take any length: the port's
+    ``score_batch`` equals the JAX package's on rows of 40-120 residues
+    holding slices of the consensus."""
+    rng = np.random.default_rng(m)
+    cons = rng.integers(0, 20, m)
+    prof = hmm.hmm_from_consensus("long", cons)
+    jprof = jhmm.hmm_from_consensus("long", cons)
+    assert prof.length == m > hmm.BLOCK_MAX_M
+    B, L = 5, 120
+    seqs = rng.integers(0, 21, (B, L)).astype(np.uint8)
+    for b in range(B):
+        at = int(rng.integers(0, m - L))
+        seqs[b, 8:L] = cons[at:at + L - 8]
+    lengths = rng.integers(40, L + 1, B).astype(np.int32)
+    lengths[0] = L
+    jes, jst = jhmm.score_batch(jprof, seqs, lengths)
+    es, st = hmm.score_batch(prof, seqs, lengths, device="cpu")
+    _assert_ends_match(es, st, jes, jst, lengths)
+    assert (es[0, 20:] > 20.0).all()      # the planted slice scores
+
+
+def test_pack_profiles_takes_every_length():
+    """``pack_profiles`` takes m = 2,049 and a batch across the warp, the
+    block and the tile path; its batched call (the plain version on the
+    CPU) equals each profile's ``viterbi_ends_plain``."""
+    rng = np.random.default_rng(11)
+    ms = (300, 512, 513, 2048, 2049)
+    profs = [hmm.hmm_from_consensus(f"c{m}", rng.integers(0, 20, m))
+             for m in ms]
+    one = hmm.pack_profiles(profs[-1:], "cpu")
+    assert one.lengths == (2049,) and one.tile_m == 2049
+    assert len(one.tile_ids) == 1 and not len(one.block_ids)
+    pack = hmm.pack_profiles(profs, "cpu")
+    assert pack.warp_ids.tolist() == [0, 1] and pack.npl == 16
+    assert pack.block_ids.tolist() == [2, 3] and pack.block_m == 2048
+    assert pack.tile_ids.tolist() == [4] and pack.tile_m == 2049
+    lengths = np.asarray([0, 1, 37, 64], np.int32)
+    flat = rng.integers(0, 21, int(lengths.sum())).astype(np.uint8)
+    offsets = (np.cumsum(lengths) - lengths).astype(np.int64)
+    seqs, row_off, row_len = (torch.from_numpy(x)
+                              for x in (flat, offsets, lengths))
+    es, st = hmm.viterbi_kernel.batched(pack, seqs, row_off, row_len)
+    padded = np.full((len(lengths), 64), aa.STOP, np.uint8)
+    for b, (o, n) in enumerate(zip(offsets, lengths)):
+        padded[b, :n] = flat[o:o + n]
+    for p, prof in enumerate(profs):
+        want_es, want_st = hmm.viterbi_ends_plain(
+            *hmm.profile_tensors(prof, "cpu"), torch.from_numpy(padded),
+            row_len, prof.length)
+        for b, (o, n) in enumerate(zip(offsets, lengths)):
+            assert torch.equal(es[p, o:o + n].view(torch.int32),
+                               want_es[b, :n].view(torch.int32)), (p, b)
+            assert torch.equal(st[p, o:o + n], want_st[b, :n])
+
+
 def test_viterbi_signature_of_the_jax_package():
     """``viterbi_ends`` takes the JAX package's arguments (``tDD``, not
     its sum) and returns tensors; the wrapper takes the plain version on

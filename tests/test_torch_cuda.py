@@ -456,12 +456,13 @@ def test_banded_ed_kernel_equals_plain(card, band):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [20, 37, 120, 300, 512, 513, 1100, 2048])
+@pytest.mark.parametrize("m", [20, 37, 120, 300, 512, 513, 1100, 2048,
+                               2049, 5000])
 def test_viterbi_kernel_equals_plain(card, m):
     """The hand kernel csrc/viterbi.cu bit-equal to its plain version at
     every position within a row's length, one profile on a padded array:
-    the warp path (m <= 512, 2-16 nodes a lane) and the block path (one
-    node a thread, and two)."""
+    the warp path (m <= 512, 2-16 nodes a lane), the block path (one
+    node a thread, and two) and the tile path (m > 2,048: node tiles)."""
     from spades_for_blackbird_tpu_torch.ops import hmm
     rng = np.random.default_rng(m)
     cons = rng.integers(0, 20, m)
@@ -543,6 +544,63 @@ def test_seg_sum_kernel_equals_plain(card, dtype, cols):
         assert torch.equal(got, want)
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
     assert seg_sum.seg_sum.launches == before + 5
+
+
+def _run_length_rows(rng, case):
+    """(index, values, limit) of a scatter whose runs have the lengths
+    of ``case``, in a shuffled row order."""
+    if case == "single run":
+        n, lens, cols = 10, np.asarray([1_100_000]), 1
+    elif case == "long runs":
+        n, cols = 200, 1
+        lens = np.concatenate([np.full(3, 300_000), rng.integers(1, 9000,
+                                                                 197)])
+    else:  # mixed lengths, C = 21
+        n, cols = 6_000, 21
+        lens = np.concatenate([rng.integers(1, 9, 5_000),
+                               rng.integers(50, 500, 900),
+                               rng.integers(1_000, 5_000, 100)])
+    slots = rng.permutation(n)[:len(lens)]
+    idx = np.repeat(slots, lens)
+    idx[rng.random(len(idx)) < 0.05] = n
+    idx = idx[rng.permutation(len(idx))]
+    vals = rng.standard_normal((len(idx), cols)) * np.exp2(
+        rng.integers(-60, 60, (len(idx), cols)))
+    return torch.from_numpy(idx), torch.from_numpy(vals), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["single run", "long runs",
+                                  "mixed lengths, C = 21"])
+def test_seg_sum_kernel_equals_plain_by_run_length(card, case):
+    """The kernel (tiles of short runs, a block a long run) bit-equal to
+    its plain version on one run of 1.1 million rows, runs past a tile
+    beside short ones, and mixed lengths at C = 21, with int32 and int64
+    slots, reading through the permutation and on rows copied out; the
+    route equals the CPU's ``index_add_`` in three calls."""
+    from spades_for_blackbird_tpu_torch.ops import segments, seg_sum
+    rng = np.random.default_rng(len(case))
+    idx, vals, n = _run_length_rows(rng, case)
+    cols = vals.shape[1]
+    slot, perm = segments.sorted_slots(idx.to(card), n)
+    assert slot.dtype == torch.int32
+    out = torch.zeros((n + 1, cols), dtype=torch.float32, device=card)
+    v = vals.to(torch.float32).to(card)
+    want = seg_sum.seg_sum_plain(out.cpu(), slot.cpu(), v.cpu(), perm.cpu(),
+                                 n)
+    kernel = seg_sum.SegSumKernel()
+    for keys in (slot, slot.to(torch.int64)):
+        for got in (kernel(out.clone(), keys, v, perm=perm, limit=n),
+                    kernel(out.clone(), keys, v[perm], limit=n)):
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
+    assert kernel.launches == 4
+    cpu = torch.zeros((n + 1, cols)).index_add_(0, idx, vals.float())
+    for _ in range(3):
+        route = segments.index_add_float(out.clone(), idx.to(card), v,
+                                         limit=n)
+        assert torch.equal(route[:n].cpu().view(torch.int32),
+                           cpu[:n].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -98,3 +98,70 @@ def test_the_card_route_refuses_integer_sums():
     out = kernel(torch.zeros(3, 1), torch.tensor([0, 0, 2]),
                  torch.tensor([[1.0], [2.0], [4.0]]))
     assert out[:, 0].tolist() == [3.0, 0.0, 4.0] and kernel.launches == 0
+
+
+def _route_case(case):
+    """(out, index, src, limit) of one adversarial scatter for the route."""
+    rng = np.random.default_rng(len(case))
+    tile = seg_sum.tile_rows(1, torch.float32)
+    if case == "one slot holds every row":
+        n, M, cols, dtype = 6, 30_000, 1, torch.float32
+        idx = np.full(M, 4)
+    elif case == "a run longer than any tile":
+        n, M, cols, dtype = 50, 3 * tile + 5_000, 1, torch.float32
+        idx = rng.integers(0, n + 1, M)
+        idx[rng.permutation(M)[:3 * tile + 7]] = 17
+    elif case == "C = 21 float32":
+        n, M, cols, dtype = 300, 12_000, 21, torch.float32
+        idx = rng.integers(0, n + 1, M)
+        idx[rng.random(M) < 0.5] = 2
+    else:  # float64 with signed zeros and the dropped slot
+        n, M, cols, dtype = 40, 20_000, 3, torch.float64
+        idx = rng.integers(0, n + 1, M)
+        idx[rng.random(M) < 0.3] = n
+    vals = rng.standard_normal((M, cols)) * np.exp2(
+        rng.integers(-60, 60, (M, cols)))
+    vals[rng.random((M, cols)) < 0.05] = -0.0
+    vals[rng.random((M, cols)) < 0.05] = 0.0
+    shape = (n + 1,) if cols == 1 else (n + 1, cols)
+    out = torch.zeros(shape, dtype=dtype)
+    out[n] = 7.0                                    # the dropped slot
+    out[1] = -0.0
+    src = torch.from_numpy(vals if cols > 1 else vals[:, 0]).to(dtype)
+    return out, torch.from_numpy(idx), src, n
+
+
+@pytest.mark.parametrize("case", ["one slot holds every row",
+                                  "a run longer than any tile",
+                                  "C = 21 float32",
+                                  "float64 with signed zeros and the "
+                                  "dropped slot"])
+def test_route_cases_equal_index_add_bit_for_bit(case):
+    """The route (int32 keys, the dropped rows keyed at the limit, the
+    rows read through the permutation) equals the CPU's ``index_add_``
+    bit for bit, the dropped slot's value untouched; the same rows
+    shuffled give other bits, so the comparison can fail."""
+    out, idx, src, n = _route_case(case)
+    keep = idx < n
+    want = out.clone()
+    want[:n].index_add_(0, idx[keep], src[keep])
+    got = segments.ordered_index_add_(out.clone(), idx, src, limit=n)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got[n]), _bits(out[n]))
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(len(idx)))
+    other = out.clone()
+    other[:n].index_add_(0, idx[perm][keep[perm]], src[perm][keep[perm]])
+    assert not torch.equal(_bits(other), _bits(want))
+
+
+def test_sorted_slots_keys_int32_below_2_31_and_drop_last():
+    idx = torch.tensor([5, 2, 9, 2, 1 << 40, 0, 5])
+    slot, perm = segments.sorted_slots(idx, 6)
+    assert slot.dtype == torch.int32
+    assert slot.tolist() == [0, 2, 2, 5, 5, 6, 6]
+    assert perm.tolist() == [5, 1, 3, 0, 6, 2, 4]   # stable: row order kept
+    slot, perm = segments.sorted_slots(idx, 1 << 31)
+    assert slot.dtype == torch.int64
+    assert slot.tolist() == [0, 2, 2, 5, 5, 9, 1 << 31]
+    assert seg_sum.tile_rows(1, torch.float32) * 4 == seg_sum.TILE_BYTES
+    assert seg_sum.tile_rows(21, torch.float32) >= 1
