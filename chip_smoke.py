@@ -187,12 +187,13 @@ prints no result):
    >= 0.95 and no genome with a misassembly outside the island's windows
    (each graded with ``utils/assess`` on the contigs whose 21-mers come
    mostly from it), the kernel launched inside ``second_phase_setup``;
-   (b) ``--metaplasmid --only-assembler -k 55`` and (c) ``--metaviral
-   --only-assembler -k 55`` on the same reads (one rung: without the
-   correction each rung takes 2.5 times as long): return 0, each circle
-   held at
+   (b) (``--metaplasmid --only-assembler -k 55``, cut when phase 17
+   came: (c) runs the same rising cutoff, and phase 3 holds
+   ``--metaplasmid`` card == CPU) (c) ``--metaviral --only-assembler
+   -k 55`` on the same reads (one rung: without the correction each
+   rung takes 2.5 times as long): return 0, each circle held at
    >= 90% of its 21-mers by one record of ``components_*.fasta`` or
-   ``contigs.circular.fasta``; (c) writes ``contigs.linears.fasta`` and
+   ``contigs.circular.fasta``; it writes ``contigs.linears.fasta`` and
    lists the phage as circular;
 13. ``-1/-2 --plasmid -k 55`` (the whole ladder until phase 15 came) on
    phase 8's reads plus a 12 kb and a 60 kb
@@ -265,6 +266,33 @@ prints no result):
    remover on phase 10's uneven reads: genome fraction >= 0.95 and no
    misassembly.
 
+17. the multi-device path (``parallel/*``), run right after phase 8 on
+   its data: a process group of world size 1 over NCCL in this process
+   (NCCL will not put two ranks on one card), the entry points made to
+   take their sharded branches on it. (a) ``assemble_single_k`` at
+   k = 55 (hash-partitioned counting, the spectrum summed over the
+   ranks, the partitions gathered for early tips and the graph built
+   from the whole table on every rank): the (k+1)-mer and vertex tables
+   and the contigs with their coverages bit-equal to phase 4's; (a')
+   the routed builders (``make_sharded_vertex_builder``, and
+   ``make_sharded_graph_builder``'s routed lookups: construction
+   without early tips) on (a)'s table: its vertex table and raw graph;
+   (b) ``correct_reads`` with qualities (``make_sharded_hammer``): the
+   corrected reads, the stats and each iteration's table, ``total_lq``
+   and ``qual_sum`` bit-equal to phase 7 (a)'s; (c)
+   ``map_reads_multi_sharded`` of both mates and
+   ``fill_paired_index_sharded`` on the graph and library phase 8's
+   repeat resolution had: chain mappings and paired index bit-equal to
+   its; (d) ``contract_chains_sharded`` on (a)'s successor array, equal
+   to ``contract_chains``. Phases 4 and 7 record 64-bit hashes of their
+   tables and statistics (``bits_digest``, on the card, inside their
+   timed calls without a wait), phase 8 keeps its chain mappings and
+   paired index and copies them to the host after its run, so nothing
+   is run twice. Each step's wall
+   beside the single-device wall, its peak device memory and its
+   ``kmer_extract`` and ``seg_sum`` launches are printed, with the NCCL
+   version.
+
 The float sums of every phase run through the ``seg_sum`` kernel
 (``csrc/seg_sum.cu``: the rows of a scatter-add sorted by slot, each
 slot's run added in row order, short runs a thread from a tile in
@@ -279,16 +307,16 @@ run of 1.2 million rows; mixed run lengths at C = 21), each timed as
 the route launches it beside its byte and chain bounds, phase 3
 holds
 ``drop_scatter``'s float sum on the card to the CPU's bits in five calls
-on a collision-heavy scatter, runs the 20 kb ``--careful`` command
-three times on the card against the CPU's one run (byte-identical
-files), and runs each of the 19 tools on a 20 kb genome on the card and
+on a collision-heavy scatter, holds the 20 kb ``--careful`` command's
+card run byte-identical to the CPU's (three card runs until phase 17
+came), and runs each of the 19 tools on a 20 kb genome on the card and
 on the CPU (a child process): the same files and output, a number
 printed with d decimals within 10^-d; phase 4 holds its assembly's
 largest float sum (condense's coverage sums at k = 55) to the CPU's
 bits in five calls and times the kernel there, beside its bound, its
 plain version and ``index_add_`` on the card.
 
-Phases 9-16 run with the plain versions of the kernels refused on the
+Phases 9-17 run with the plain versions of the kernels refused on the
 card. Each phase's wall is printed as ``[timing]``. ``--only PHASES``
 runs some of the phases that need no other (for a short check) and
 prints no result.
@@ -989,12 +1017,6 @@ def cli_gpu_vs_cpu(device, codes, lengths, quals) -> dict:
                 f"{len(a)} identical contigs, {len(sa)} identical segments, "
                 f"{len(la)} identical links, {len(pa)} identical P-lines; "
                 f"card {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s")
-        # the run a card's unordered float sums once flipped
-        _, extra, _, (_, cpu) = next(c for c in compared
-                                     if c[0] == "careful")
-        record["careful"]["card_repeats"] = careful_again(
-            device, [os.path.join(tmp, "careful", f"cuda_{i}")
-                     for i in range(2, CAREFUL_REPEATS + 1)], cpu, extra)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return record
@@ -1062,10 +1084,15 @@ def gfa_records(path: str):
     return segs, links, paths
 
 
-def phase_full(device) -> tuple[dict, tuple]:
+def phase_full(device, refs=None) -> tuple[dict, tuple]:
     """The full-size assembly; returns its record, and the genome, its
-    reads, the reads without their errors and the assembled graph."""
+    reads, the reads without their errors and the assembled graph. Puts
+    into ``refs["full"]`` what phase 17 holds its sharded run to:
+    digests of the (k+1)-mer and vertex tables ``condense.build_graph``
+    was handed (``bits_digest``), the contigs with their coverages and
+    the wall."""
     import torch
+    from spades_for_blackbird_tpu_torch.graph import condense
     from spades_for_blackbird_tpu_torch.ops import kmer_cuda, seg_sum
     from spades_for_blackbird_tpu_torch.pipeline import assemble
     from spades_for_blackbird_tpu_torch.utils import assess, timetrace
@@ -1081,7 +1108,9 @@ def phase_full(device) -> tuple[dict, tuple]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     timetrace.enable()
-    with record_largest_float_sum() as seen:
+    tables = {}
+    with record_largest_float_sum() as seen, patched(
+            condense, "build_graph", tables_recorded(tables)):
         kernel.launches = sums.launches = 0
         t0 = time.perf_counter()
         res = assemble.assemble_single_k(codes, lengths, FULL_K,
@@ -1090,8 +1119,14 @@ def phase_full(device) -> tuple[dict, tuple]:
         wall = time.perf_counter() - t0
         launches, seg_launches = kernel.launches, sums.launches
     timetrace.disable()
+    if refs is not None:
+        refs["full"] = {"tables": tables, "contigs": list(res.contigs),
+                        "wall_s": wall}
     peak = torch.cuda.max_memory_allocated(device)
     scopes = scope_seconds(timetrace.events())
+    if refs is not None:
+        refs["full"]["build_s"] = (scopes.get("vertex_table", 0.0)
+                                   + scopes.get("condense", 0.0))
     for name, sec in sorted(scopes.items(), key=lambda kv: -kv[1]):
         log(f"[full] scope {name}: {sec:.3f} s")
     report = assess.assess([s for s, _ in res.contigs], genome)
@@ -1287,12 +1322,16 @@ def plain_extraction_refused():
             setattr(mod, name, fn)
 
 
-def phase_hammer(device, genome, codes, lengths, quals, truth) -> dict:
+def phase_hammer(device, genome, codes, lengths, quals, truth,
+                 refs=None) -> dict:
     """The error corrector on the 4.6 Mb simulation: ``correct_reads`` on
-    the card against the true reads, then the default command."""
+    the card against the true reads, then the default command. Puts into
+    ``refs["hammer"]`` what phase 17 holds its sharded corrector to: the
+    corrected reads, the stats, the wall and digests of each iteration's
+    table and statistics handed to subclustering."""
     import torch
     from spades_for_blackbird_tpu_torch import cli
-    from spades_for_blackbird_tpu_torch.hammer import correct
+    from spades_for_blackbird_tpu_torch.hammer import bayes, correct
     from spades_for_blackbird_tpu_torch.ops import kmer_cuda
     from spades_for_blackbird_tpu_torch.utils import assess, timetrace
 
@@ -1310,16 +1349,22 @@ def phase_hammer(device, genome, codes, lengths, quals, truth) -> dict:
             before_mem = torch.cuda.memory_allocated(device)
             timetrace.enable()
             kernel.launches = 0
-            t0 = time.perf_counter()
-            fixed, stats = correct.correct_reads(c, ln, quals=q,
-                                                 device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            qstats = []
+            with patched(bayes, "subcluster_kmers_chunked",
+                         stats_recorded(qstats)):
+                t0 = time.perf_counter()
+                fixed, stats = correct.correct_reads(c, ln, quals=q,
+                                                     device=device)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             launches = kernel.launches
             timetrace.disable()
             peak = torch.cuda.max_memory_allocated(device) - before_mem
             scopes = scope_seconds(timetrace.events())
             fixed = fixed.cpu().numpy()
+            if refs is not None:
+                refs["hammer"] = {"codes": fixed, "stats": dict(stats),
+                                  "qstats": qstats, "wall_s": wall}
             del c, ln, q
             torch.cuda.empty_cache()
             after = fixed != truth
@@ -1429,6 +1474,371 @@ def launches_inside(kernel, targets):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def patched(mod, name: str, make):
+    """While open, ``mod.name`` is ``make(the original)``."""
+    original = getattr(mod, name)
+    setattr(mod, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(mod, name, original)
+
+
+DIGEST_CHUNK = 1 << 24   # words a digest step holds as int64
+# splitmix64's constants as int64: the golden-ratio step and the two
+# multipliers of its finaliser
+MIX_STEP = -7046029254386353131
+MIX_C1 = -4658895280553007687
+MIX_C2 = -7723592293110705685
+
+
+def _shr(x, s: int):
+    """Logical right shift of int64 words."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(z):
+    """splitmix64's finaliser on int64 words (wrapping products): a
+    bijection that spreads every input bit over the whole word."""
+    z = (z ^ _shr(z, 30)) * MIX_C1
+    z = (z ^ _shr(z, 27)) * MIX_C2
+    return z ^ _shr(z, 31)
+
+
+def bits_digest(t):
+    """A 64-bit hash of a tensor's bits, on its device and without
+    waiting for it: the sum, wrapping mod 2^64, of a mixed hash of every
+    (position, word) pair (floats as their integer words),
+    ``mix(word ^ mix(position * step))``, with the shape and dtype
+    beside it. The mix is not linear, so differences that cancel in a
+    weighted sum (+d, -2d, +d at three positions; two counts swapped
+    between two pairs of rows) change the digest like any other; two
+    tensors that differ collide only by chance, as two random 64-bit
+    words do. It is a check, not a proof: phase 17 holds the large
+    tables (the (k+1)-mer and vertex tables, the corrector's statistics)
+    through it, recorded inside the timed calls of phases 4 and 7
+    without a copy to the host, and compares the small objects whole.
+    Returns (shape, dtype, 0-dim int64 tensor)."""
+    import torch
+    words = t.reshape(-1)
+    if words.is_floating_point():
+        words = words.view({2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[words.element_size()])
+    elif words.dtype == torch.bool:
+        words = words.view(torch.uint8)
+    acc = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, words.numel(), DIGEST_CHUNK):
+        w = words[lo:lo + DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(lo, lo + w.numel(), dtype=torch.int64,
+                           device=t.device)
+        acc += _mix64(w ^ _mix64(pos * MIX_STEP)).sum()
+    return tuple(t.shape), t.dtype, acc
+
+
+def digests(tensors) -> list:
+    return [bits_digest(t) for t in tensors]
+
+
+def require_same(what: str, got, want) -> None:
+    """Raise unless every digest of ``got`` equals ``want``'s."""
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if (a[0], a[1], int(a[2])) != (b[0], b[1], int(b[2]))]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"{what}: fields {bad} differ from the "
+                             f"single-device run")
+
+
+def table_digests(kp1, vt) -> dict:
+    n, m = int(kp1.num), int(vt.num)
+    return {"kp1": digests([kp1.kmers[:n], kp1.counts[:n]]), "kp1_num": n,
+            "vt": digests([vt.kmers[:m], vt.out_mask[:m], vt.in_mask[:m]]),
+            "vt_num": m}
+
+
+def graph_digests(g) -> list:
+    """Digests of every tensor field of a graph."""
+    import dataclasses
+
+    import torch
+    return digests([getattr(g, f.name) for f in dataclasses.fields(g)
+                    if isinstance(getattr(g, f.name), torch.Tensor)])
+
+
+def tables_recorded(into: dict):
+    """``patched`` maker for ``condense.build_graph``: digests of the
+    (k+1)-mer and vertex tables it is handed go into ``into``."""
+    def make(build):
+        def call(kp1, vt, k):
+            into.update(table_digests(kp1, vt))
+            return build(kp1, vt, k)
+        return call
+    return make
+
+
+def stats_recorded(into: list):
+    """``patched`` maker for ``bayes.subcluster_kmers_chunked``: digests
+    of each call's table rows and quality statistics are appended to
+    ``into``."""
+    def make(sub):
+        def call(kmers, counts, num, stats, *args, **kwargs):
+            n = int(num)
+            into.append(digests([kmers[:n], counts[:n], stats.total_lq[:n],
+                                 stats.qual_sum[:n]]))
+            return sub(kmers, counts, num, stats, *args, **kwargs)
+        return call
+    return make
+
+
+def rr_inputs_recorded(into: dict):
+    """``patched`` maker for ``assemble.repeat_resolution_multi``: the
+    graph and the first library it is handed go into ``into`` (kept on
+    the card; the caller copies them to the host after the run)."""
+    def make(rr):
+        def call(g, libs, *args, **kwargs):
+            into.update(graph=g, lib=list(libs[0][:4]))
+            return rr(g, libs, *args, **kwargs)
+        return call
+    return make
+
+
+def index_rows(pi) -> list:
+    """A paired index's real rows: e1, e2, dist, weight."""
+    n = int(pi.num)
+    return [pi.e1[:n], pi.e2[:n], pi.dist[:n], pi.weight[:n]]
+
+
+def pair_fill_recorded(into: dict):
+    """``patched`` maker for ``pair_info.fill_paired_index_multi_chunked``:
+    the chain mappings, the index's rows and the shift go into ``into``
+    (kept on the card; the caller copies them to the host after the
+    run)."""
+    def make(fill):
+        def call(ch1, ch2, is_shift, *args, **kwargs):
+            pi = fill(ch1, ch2, is_shift, *args, **kwargs)
+            into.update(ch1=list(ch1), ch2=list(ch2), shift=int(is_shift),
+                        index=index_rows(pi))
+            return pi
+        return call
+    return make
+
+
+def require_equal(what: str, got, want) -> None:
+    """Raise unless every tensor of ``got`` equals the host copy of the
+    same field in ``want``, bit for bit."""
+    import torch
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.dtype != b.dtype or a.shape != b.shape
+           or not torch.equal(a.cpu(), b)]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"{what}: fields {bad} differ from the "
+                             f"single-device run")
+
+
+def phase_sharded(device, refs, codes, lengths, quals, tmp) -> dict:
+    """Phase 17: the multi-device path (``parallel/*``) on a world-1
+    NCCL group in this process, on phase 8's data, with the entry points
+    made to take their sharded branches (``auto_mesh`` returns the
+    group's mesh), the plain kernels refused. Each step is held bit for
+    bit to what the single-device phase recorded while it ran (the large
+    tables through their 64-bit hashes, ``bits_digest``; the chain
+    mappings and the paired index whole): (a) ``assemble_single_k`` at
+    k = 55 (early tips on), held to phase 4: the (k+1)-mer and vertex
+    tables ``condense.build_graph`` is handed, the contigs with their
+    coverages; (a') the routed vertex and graph builders on (a)'s
+    table, held to (a)'s vertex table and raw graph; (b)
+    ``correct_reads`` with qualities through ``make_sharded_hammer``,
+    held to phase 7 (a): the corrected reads, the stats, each
+    iteration's table and ``total_lq``/``qual_sum``; (c)
+    ``map_reads_multi_sharded`` of both mates and
+    ``fill_paired_index_sharded`` on phase 8's repeat-resolution graph
+    and library, held to phase 8's chain mappings and paired index; (d)
+    ``contract_chains_sharded`` on (a)'s successor array, held to
+    ``contract_chains`` on it. Each step's wall, peak device memory and
+    kernel launches are printed beside the single-device wall."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from spades_for_blackbird_tpu_torch.graph import condense, pointer_jump
+    from spades_for_blackbird_tpu_torch.hammer import bayes, correct
+    from spades_for_blackbird_tpu_torch.mapping import index as eidx
+    from spades_for_blackbird_tpu_torch.ops import dna
+    from spades_for_blackbird_tpu_torch.parallel import (
+        condense_dist, construction, mapping_dist, mesh as mesh_mod)
+    from spades_for_blackbird_tpu_torch.pipeline import assemble
+
+    kernels = all_kernels()
+    steps: dict[str, dict] = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = {"wall_s": time.perf_counter() - t0,
+                       "launches": {n: kern.launches
+                                    for n, kern in kernels.items()},
+                       "peak_bytes": int(torch.cuda.max_memory_allocated(
+                           device))}
+        return out
+
+    full, ham, pr = refs["full"], refs["hammer"], refs["paired"]
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "nccl_init"),
+        rank=0, world_size=1, timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh = mesh_mod.make_mesh()
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        log(f"[sharded] NCCL {nccl}: a process group of world size "
+            f"{mesh.size} on {mesh.device}")
+        with plain_extraction_refused(), \
+                patched(mesh_mod, "auto_mesh", lambda _: lambda: mesh):
+            # (a) construction at k = 55, then simplification and contigs
+            got: dict = {}
+
+            def graph_recorded(build):
+                def call(kp1, vt, k):
+                    got.update(table_digests(kp1, vt), kp1_table=kp1,
+                               vt_table=vt)
+                    g = build(kp1, vt, k)
+                    got.update(graph=graph_digests(g))
+                    return g
+                return call
+
+            def chains_kept(materialize):
+                def call(ori, ovalid, succ, *args):
+                    got.update(succ=succ, ovalid=ovalid)
+                    return materialize(ori, ovalid, succ, *args)
+                return call
+            with patched(condense, "build_graph", graph_recorded), \
+                    patched(condense, "contract_and_materialize",
+                            chains_kept):
+                res = step("construction", lambda: assemble.assemble_single_k(
+                    codes, lengths, FULL_K, device=device))
+            want = full["tables"]
+            require_same("the (k+1)-mer table", got["kp1"], want["kp1"])
+            require_same("the vertex table", got["vt"], want["vt"])
+            if (got["kp1_num"], got["vt_num"]) != (want["kp1_num"],
+                                                   want["vt_num"]):
+                raise AssertionError("the tables' row counts differ")
+            if list(res.contigs) != full["contigs"]:
+                raise AssertionError("the contigs or their coverages differ "
+                                     "from phase 4's")
+            n_contigs = len(res.contigs)
+            del res
+
+            # (a') the routed builders (construction without early tips)
+            # on (a)'s clipped table: its vertex table and raw graph
+            kp1, vt = got.pop("kp1_table"), got.pop("vt_table")
+
+            def routed():
+                vt_r = construction.make_sharded_vertex_builder(
+                    mesh, FULL_K)(kp1)
+                return vt_r, condense_dist.make_sharded_graph_builder(
+                    mesh, FULL_K)(kp1, vt_r)
+            vt_r, g_r = step("routed_builders", routed)
+            require_same("the routed vertex table",
+                         table_digests(kp1, vt_r)["vt"], got["vt"])
+            require_same("the routed graph", graph_digests(g_r),
+                         got["graph"])
+            del kp1, vt, vt_r, g_r
+
+            # (b) the corrector
+            qstats: list = []
+            c, ln, q = (torch.from_numpy(x).to(device)
+                        for x in (codes, lengths, quals))
+            with patched(bayes, "subcluster_kmers_chunked",
+                         stats_recorded(qstats)):
+                fixed, stats = step("hammer", lambda: correct.correct_reads(
+                    c, ln, quals=q, device=device))
+            del c, ln, q
+            if not np.array_equal(fixed.cpu().numpy(), ham["codes"]):
+                raise AssertionError("the corrected reads differ from "
+                                     "phase 7 (a)'s")
+            del fixed
+            if stats != ham["stats"]:
+                raise AssertionError(f"stats {stats} != {ham['stats']}")
+            if len(qstats) != len(ham["qstats"]):
+                raise AssertionError("another number of iterations")
+            for a, b in zip(qstats, ham["qstats"]):
+                require_same("the corrector's table and statistics", a, b)
+
+            # (c) the mapping of both mates and the paired index
+            g = pr["graph"].to(device)
+            k = g.k
+            c1, l1, c2, l2 = (x.to(device) for x in pr["lib"])
+            idx = eidx.build_edge_index(g, k + 1, device=device)
+
+            def mapping():
+                return [mapping_dist.map_reads_multi_sharded(
+                    mesh, idx, g.seq_len, g.conj, c, ln, k + 1,
+                    min_votes=1) for c, ln in (
+                        (c1, l1), (dna.revcomp_reads(c2, l2), l2))]
+            ch1, ch2 = step("mapping", mapping)
+            require_equal("the first mates' chain mappings", ch1,
+                          pr["ch1"])
+            require_equal("the second mates' chain mappings", ch2,
+                          pr["ch2"])
+            pi = step("pair_fill", lambda: mapping_dist.fill_paired_index_sharded(
+                mesh, ch1, ch2, pr["shift"]))
+            n_pairs = int(pi.num)
+            require_equal("the paired index", index_rows(pi), pr["index"])
+            del g, idx, c1, l1, c2, l2, ch1, ch2, pi
+
+            # (d) chain contraction on (a)'s successor array
+            succ, ovalid = got["succ"], got["ovalid"]
+            conj = torch.arange(succ.shape[0], device=device) ^ 1
+            t0 = time.perf_counter()
+            single = pointer_jump.contract_chains(succ, conj, ovalid)
+            torch.cuda.synchronize()
+            chains_single_s = time.perf_counter() - t0
+            sharded = step("contract_chains", lambda:
+                           condense_dist.contract_chains_sharded(
+                               mesh, succ, conj, ovalid))
+            for f in single._fields:
+                if not torch.equal(getattr(sharded, f), getattr(single, f)):
+                    raise AssertionError(f"contract_chains_sharded: {f} "
+                                         f"differs from contract_chains")
+            n_elements = int(succ.shape[0])
+            del got, succ, ovalid, conj, single, sharded
+    finally:
+        dist.destroy_process_group()
+
+    singles = {"construction": full["wall_s"],
+               "routed_builders": full["build_s"], "hammer": ham["wall_s"],
+               "mapping": pr["spans_s"].get("rr_map_reads", 0.0),
+               "pair_fill": pr["spans_s"].get("rr_pair_fill", 0.0),
+               "contract_chains": chains_single_s}
+    for name, st in steps.items():
+        log(f"[sharded] {name}: {st['wall_s']:.3f} s on the world-1 group "
+            f"(single-device {singles[name]:.3f} s), peak device memory "
+            f"{st['peak_bytes'] / 2**30:.2f} GiB, launches "
+            f"{json.dumps(st['launches'])}")
+    log(f"[sharded] the routed builders' single-device wall is phase 4's "
+        f"vertex_table and condense spans")
+    log(f"[sharded] bit-equal to the single-device runs: {n_contigs} "
+        f"contigs and both tables (phase 4), the routed builders' vertex "
+        f"table and graph, the corrector's reads, stats "
+        f"and {len(qstats)} iterations' statistics (phase 7 (a)), both "
+        f"mates' chain mappings and {n_pairs} paired-index rows (phase "
+        f"8), the chains of {n_elements} instances")
+    for name, kern in (("construction", "kmer_extract"),
+                       ("construction", "seg_sum"),
+                       ("routed_builders", "seg_sum"),
+                       ("hammer", "kmer_extract"), ("hammer", "seg_sum"),
+                       ("mapping", "kmer_extract")):
+        if steps[name]["launches"][kern] <= 0:
+            raise AssertionError(f"the sharded {name} never launched "
+                                 f"{kern}")
+    return {"nccl": nccl, "world_size": 1, "steps": steps,
+            "single_s": singles, "contigs": n_contigs,
+            "paired_index_rows": n_pairs, "chain_elements": n_elements}
+
+
 def assess_fasta(fasta_path: str, genome: str, strip_n: bool = False):
     """``utils/assess`` of a FASTA against the truth (scaffolds with their
     N's removed, as scale_bench.py grades them)."""
@@ -1449,14 +1859,19 @@ def quality(fasta_path: str, genome: str, strip_n: bool = False):
     return report
 
 
-def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
+def phase_paired(device, genome, codes, lengths, quals, tmp,
+                 refs=None) -> dict:
     """The paired default command on the 4.6 Mb simulation: correction,
     the ladder, gap closing and paired repeat resolution, from two FASTQ
     files to contigs and scaffolds. The mates and the profiled run's
-    output stay in ``tmp`` for phases 9 and 11."""
+    output stay in ``tmp`` for phases 9 and 11. Puts into
+    ``refs["paired"]`` what phase 17 holds its sharded mapping to: repeat
+    resolution's graph and library, its chain mappings and paired index
+    (host copies, made after the run)."""
     import torch
     from spades_for_blackbird_tpu_torch import cli
     from spades_for_blackbird_tpu_torch.ops import kmer_cuda, seg_sum
+    from spades_for_blackbird_tpu_torch.paired import pair_info
     from spades_for_blackbird_tpu_torch.pipeline import assemble, gap_closer
 
     kernel = kmer_cuda.extract_sort_keys
@@ -1472,9 +1887,14 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
     argv = ["-1", mates[0], "-2", mates[1], "--checkpoints", "none",
             "--trace-time"]
     out = os.path.join(tmp, "out")
+    rr = {}
     with plain_extraction_refused(), launches_inside(
             kernel, [(gap_closer, "close_gaps"),
-                     (assemble, "repeat_resolution_multi")]) as inside:
+                     (assemble, "repeat_resolution_multi")]) as inside, \
+            patched(assemble, "repeat_resolution_multi",
+                    rr_inputs_recorded(rr)), \
+            patched(pair_info, "fill_paired_index_multi_chunked",
+                    pair_fill_recorded(rr)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         kernel.launches = seg_sum.seg_sum.launches = 0
@@ -1487,6 +1907,14 @@ def phase_paired(device, genome, codes, lengths, quals, tmp) -> dict:
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
     spans = trace_seconds(os.path.join(out, "spades_time_trace.json"))
+    if refs is not None:
+        host = torch.device("cpu")
+        refs["paired"] = {**rr, "spans_s": spans,
+                          "graph": rr["graph"].to(host),
+                          **{name: [torch.as_tensor(x).to(host)
+                                    for x in rr[name]]
+                             for name in ("lib", "ch1", "ch2", "index")}}
+    del rr
     stages = {name: spans.get(f"stage:{name}", 0.0) for name in (
         "read_conversion", "error_correction", "k21", "k33", "k55",
         "gap_closing", "repeat_resolution", "contig_output")}
@@ -2311,9 +2739,8 @@ def grade_metagenome(out, genomes, circles, windows) -> dict:
 
 
 def phase_metagenome(device, tmp, scale: float = 1.0) -> dict:
-    """Phase 12: the metagenome at full size, (a) ``-1/-2 --meta``, (b)
-    ``--metaplasmid --only-assembler`` and (c) ``--metaviral
-    --only-assembler`` on the same reads."""
+    """Phase 12: the metagenome at full size, (a) ``-1/-2 --meta`` and
+    (c) ``--metaviral --only-assembler`` on the same reads."""
     from spades_for_blackbird_tpu_torch.ops import dna, kmer_cuda
     kernel = kmer_cuda.extract_sort_keys
     t0 = time.perf_counter()
@@ -2382,7 +2809,7 @@ def phase_metagenome(device, tmp, scale: float = 1.0) -> dict:
         f.write("".join(f"{n}\t{b}\n" for n, b in zip(names, src) if b))
     shutil.rmtree(out)
 
-    for mode in ("metaplasmid", "metaviral"):
+    for mode in ("metaviral",):
         out = os.path.join(tmp, mode)
         argv = ["-1", mates[0], "-2", mates[1], "-o", out, f"--{mode}",
                 "--only-assembler", "-k", str(FULL_K), "--checkpoints",
@@ -2742,7 +3169,6 @@ SEG_SOURCE = f"{PACKAGE}/csrc/seg_sum.cu"
 # the float scatter-add it replaces: an XLA scatter, no Pallas kernel
 SEG_REPLACES = "spades_for_blackbird_tpu/graph/condense.py:170"
 SEG_REPEATS = 5         # phases 3 and 4: calls held to the CPU's bits
-CAREFUL_REPEATS = 3     # phase 3: card runs of --careful against the CPU's
 FLOAT32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOOLS_GENOME = 20_000   # phase 3: the tools' genome
 TOOLS_CPU_CHILDREN = 2  # phase 3: child processes running the CPU's tools
@@ -2998,33 +3424,6 @@ def main_path_sums(device, seen) -> dict:
     row = seg_sum_row(device, index.cpu(), src.cpu(), limit,
                       f"k={FULL_K} condense", timed=True)
     return row
-
-
-def careful_again(device, card_dirs, cpu_dir, argv) -> list[dict]:
-    """``--careful`` run on the card ``len(card_dirs)`` more times, each
-    against the CPU's one run: the same contigs, scaffolds, paths and GFA
-    segments, links and P-lines, bit for bit in the coverages too."""
-    from spades_for_blackbird_tpu_torch import cli
-    runs = []
-    for out in card_dirs:
-        t0 = time.perf_counter()
-        rc = cli.main(argv + ["-o", out, "--device", str(device)])
-        if rc != 0:
-            raise AssertionError(f"--careful on the card returned {rc}")
-        wall = time.perf_counter() - t0
-        for name in ("contigs.fasta", "scaffolds.fasta", "contigs.paths",
-                     "scaffolds.paths", "assembly_graph_with_scaffolds.gfa"):
-            texts = [open(os.path.join(d, name)).read()
-                     for d in (out, cpu_dir)]
-            if texts[0] != texts[1]:
-                raise AssertionError(f"--careful card run "
-                                     f"{len(runs) + 2}: {name} differs "
-                                     f"from the CPU's")
-        runs.append({"gpu_s": wall})
-        log(f"[gpu-vs-cpu] 20 kb careful, card run {len(runs) + 1} of "
-            f"{CAREFUL_REPEATS}: byte-identical contigs, scaffolds, paths "
-            f"and GFA to the CPU's; {wall:.2f} s")
-    return runs
 
 
 def sums_gpu_vs_cpu(device) -> dict:
@@ -4729,14 +5128,18 @@ def main(argv=None) -> int:
             "kernel_vs_plain_new", phase_new_kernels, device)
         record["seg_sum"] = timed("seg_sum", phase_seg_sum, device)
         record["gpu_vs_cpu"] = timed("gpu_vs_cpu", phase_gpu_vs_cpu, device)
+        refs: dict = {}   # phases 4, 7 and 8's results for phase 17
         record["full"], (genome, codes, lengths, quals, truth, graph) = \
-            timed("full", phase_full, device)
+            timed("full", phase_full, device, refs)
         record["ladder"] = timed("ladder", phase_ladder, device)
         record["hammer"] = timed("hammer", phase_hammer, device, genome,
-                                 codes, lengths, quals, truth)
+                                 codes, lengths, quals, truth, refs)
         del truth
         record["paired"] = timed("paired", phase_paired, device, genome,
-                                 codes, lengths, quals, tmp)
+                                 codes, lengths, quals, tmp, refs)
+        record["sharded"] = timed("sharded", phase_sharded, device, refs,
+                                  codes, lengths, quals, tmp)
+        del refs
         mates = record["paired"]["mates"]
         record["careful"] = timed("careful", phase_careful, device, genome,
                                   graph, codes, lengths, mates, tmp)
@@ -4805,7 +5208,6 @@ def main(argv=None) -> int:
         "meta_cli": meta["meta"]["launches"],
         "second_phase":
             meta["meta"]["launches_by_stage"]["second_phase_setup"],
-        "metaplasmid_cli": meta["metaplasmid"]["launches"],
         "metaviral_cli": meta["metaviral"]["launches"],
         "plasmid_cli": plasmid["launches"],
         "rna_cli": rna["rna"]["launches"],
@@ -4818,6 +5220,8 @@ def main(argv=None) -> int:
                 "series_cli": hybrid["series"]["launches"]}
     new_runs.update({f"tool_{name}": r["launches"] for name, r in
                      record["tools"]["runs"].items()})
+    new_runs.update({f"sharded_{name}": st["launches"] for name, st in
+                     record["sharded"]["steps"].items()})
     sites.update({name: n["kmer_extract"] for name, n in new_runs.items()})
     # the main paths' runs; gap_closing, repeat_resolution,
     # careful_stage, restricted_in_simplify, second_phase and
@@ -4826,7 +5230,7 @@ def main(argv=None) -> int:
         "single_k", "ladder_cli", "correct_reads", "default_cli",
         "paired_cli", "correct_mismatches", "careful_cli", "sc_cli",
         "uneven_single_k", "restricted_single_k", "free_single_k",
-        "gfa_input_cli", "meta_cli", "metaplasmid_cli", "metaviral_cli",
+        "gfa_input_cli", "meta_cli", "metaviral_cli",
         "plasmid_cli", "rna_cli", "rnaviral_cli")) + sum(
         n["kmer_extract"] for n in new_runs.values())
     log("kernel launches on the main paths: " + ", ".join(

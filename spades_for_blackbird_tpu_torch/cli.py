@@ -33,6 +33,14 @@ writes ``contigs.paths``, ``scaffolds.paths``, ``final.lib_data``,
 ``scaffold_graph.scg`` and ``scaffold_graph.dot`` besides the files
 above; the GFA then carries the scaffolds as P-lines.
 
+Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` of 2 or more in the
+environment) the run joins a process group, NCCL with the card
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``, and every rank runs the
+same stages: error correction, construction and repeat resolution run
+sharded over the ranks (``parallel/*``), the rest replicated. Rank 0
+alone writes the output directory and the log; the other ranks write
+their saves to a temporary directory they remove at the end.
+
 Usage:
     python -m spades_for_blackbird_tpu_torch -1 reads_1.fq.gz \\
         -2 reads_2.fq.gz -o out                    # on the card
@@ -40,16 +48,26 @@ Usage:
         -2 reads_2.fq.gz -o out --device cpu       # on the CPU
     python -m spades_for_blackbird_tpu_torch -s reads.fq.gz -o out \\
         --only-assembler
+    torchrun --nproc_per_node 4 -m spades_for_blackbird_tpu_torch \\
+        -1 reads_1.fq.gz -2 reads_2.fq.gz -o out   # four cards
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
 import os
+import shutil
 import sys
+import tempfile
+
+import torch
+import torch.distributed as dist
 
 from .io import fastq
+from .parallel import mesh as mesh_mod
 from .pipeline import assemble, spades_stages
 from .pipeline.config import config_for_mode
 from .pipeline.stages import PipelineContext, StageManager
@@ -167,7 +185,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-time", action="store_true",
                    help="emit Chrome-trace JSON of stage/phase timings")
     p.add_argument("--threads", "-t", type=int, default=None,
-                   help="accepted for CLI compatibility (device-parallel)")
+                   help="accepted for the reference's command line and "
+                        "unused: the work is spread over a device's "
+                        "threads, and over devices by running the "
+                        "command under torchrun --nproc_per_node N")
     p.add_argument("--device", default=None, metavar="DEVICE",
                    help="where the assembly runs: a CUDA card by default "
                         "(cuda, cuda:1, ...); 'cpu' is the only way onto "
@@ -204,18 +225,75 @@ def main(argv=None) -> int:
     except RuntimeError as e:  # no card, and the CPU was not asked for
         return _error(str(e), code=1)
 
+    with _process_group(device) as mesh:
+        if mesh is None:
+            return _main(args, device)
+        if mesh.rank == 0:
+            mesh.any(False)    # the other ranks have copied the saves
+            return _main(args, mesh.device)
+        scratch = tempfile.mkdtemp(prefix=f"spades_rank{mesh.rank}_")
+        try:
+            saves = os.path.join(args.output_dir, "saves")
+            if (args.continue_run or args.restart_from) and \
+                    os.path.isdir(saves):
+                shutil.copytree(saves, os.path.join(scratch, "saves"))
+            mesh.any(False)
+            args.output_dir = scratch
+            return _main(args, mesh.device, write_log=False)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _process_group(device):
+    """The mesh of the run: None without ``WORLD_SIZE`` >= 2 in the
+    environment; otherwise the default process group's, which is
+    initialised here where the caller has not (``torchrun``'s
+    ``env://`` variables; NCCL on ``cuda:LOCAL_RANK`` for a card, gloo
+    for the CPU) and destroyed at the end."""
+    if int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        yield None
+        return
+    created = not dist.is_initialized()
+    if created:
+        timeout = datetime.timedelta(minutes=30)
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", timeout=timeout)
+        else:
+            dist.init_process_group("gloo", timeout=timeout)
+    try:
+        mesh = mesh_mod.make_mesh()
+        mesh.check_device(device)
+        yield mesh
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args, device, write_log: bool = True) -> int:
+    """``main`` once the device is known: the log (``spades.log`` and the
+    console where ``write_log``, nothing otherwise) around ``_run``."""
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "spades.log"), "a") as log_f:
-        def file_writer(line):
-            log_f.write(line + "\n")
-            log_f.flush()
+    with contextlib.ExitStack() as stack:
+        writers = []
+        if write_log:
+            log_f = stack.enter_context(
+                open(os.path.join(args.output_dir, "spades.log"), "a"))
+
+            def file_writer(line):
+                log_f.write(line + "\n")
+                log_f.flush()
+            writers = [print, file_writer]
 
         # leveled per-component logging (utils/logger/logger.hpp:161 +
         # log.properties): console + spades.log writers for this run
         # only; the logger's earlier configuration comes back with the
         # end of the block, before the file closes
         with logmod.configured(properties_path=args.log_properties,
-                               writers=[print, file_writer]):
+                               writers=writers):
             if args.memory is not None:
                 membudget.set_budget_gb(args.memory)
             try:

@@ -594,15 +594,19 @@ def expand_chunk_reads(read_len: int, k: int, device: torch.device) -> int:
 
 def expand_solid_chunked(codes, lengths, table: counter.KmerTable,
                          solid, k: int, max_rounds: int = 8,
-                         chunk_reads: int | None = None) -> torch.Tensor:
+                         chunk_reads: int | None = None,
+                         reduce_solid=None) -> torch.Tensor:
     """``expand_solid`` with the read loop chunked (expander.cpp:17-70
     over read batches): each round streams the read chunks, ORs their
-    promotions, and stops at the fixed point."""
+    promotions, and stops at the fixed point. ``reduce_solid``, where
+    given, ORs a round's solid mask over the ranks of a mesh before the
+    fixed-point test (``parallel.hammer_dist``), so every rank stops at
+    the same round."""
     if chunk_reads is None:
         chunk_reads = expand_chunk_reads(codes.shape[1], k, codes.device)
     hay = segments.fuse_words(table.kmers)
     R, L = codes.shape
-    if R <= chunk_reads:
+    if R <= chunk_reads and reduce_solid is None:
         return expand_solid(codes, lengths, table, solid, k,
                             max_rounds=max_rounds, hay=hay)
     for _ in range(max_rounds):
@@ -612,6 +616,8 @@ def expand_solid_chunked(codes, lengths, table: counter.KmerTable,
             found, safe_row, _ = counter.lookup_windows(hay, table.num, c,
                                                         ln, k)
             new_solid[_promotions(found, safe_row, ln, solid, L, k)] = True
+        if reduce_solid is not None:
+            new_solid = reduce_solid(new_solid)
         if not bool(torch.any(new_solid & ~solid)):
             break
         solid = new_solid

@@ -19,6 +19,7 @@ import torch
 
 from ..kmers import counter, coverage_model
 from ..ops import dna, segments
+from ..parallel import mesh as mesh_mod
 from ..utils import membudget
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
@@ -173,6 +174,11 @@ def correct_reads(codes, lengths, k: int = 21, max_iterations: int = 2,
     ``chunk_reads`` sets the voting chunk (default: from the card's free
     memory). Returns (corrected codes, a tensor on ``device``; stats
     dict of plain numbers).
+
+    Where a process group of world size 2 or more is initialised
+    (``parallel.mesh.auto_mesh``), the quality-aware corrector runs
+    sharded over it (``parallel.hammer_dist``): every rank passes the
+    whole batch and gets the whole corrected batch back.
     """
     device = resolve_device(device, codes)
     codes = torch.as_tensor(codes).to(device)
@@ -182,6 +188,16 @@ def correct_reads(codes, lengths, k: int = 21, max_iterations: int = 2,
     if quals is not None:
         quals = torch.as_tensor(quals).to(device)
         if bayes:
+            mesh = mesh_mod.auto_mesh()
+            if mesh is not None:
+                # a process group of two or more: each rank corrects its
+                # block of the reads (the OpenMP read loop,
+                # projects/hammer/main.cpp:64)
+                from ..parallel import hammer_dist
+                mesh.check_device(device)
+                return hammer_dist.make_sharded_hammer(
+                    mesh, k, max_iterations=max_iterations,
+                    chunk_reads=chunk_reads)(codes, lengths, quals)
             return _correct_reads_bayes(codes, lengths, quals, k,
                                         max_iterations, chunk_reads)
     total_changed = 0
@@ -221,16 +237,28 @@ def correct_reads(codes, lengths, k: int = 21, max_iterations: int = 2,
 
 
 def _correct_reads_bayes(codes, lengths, quals, k: int,
-                         max_iterations: int, chunk_reads: int):
+                         max_iterations: int, chunk_reads: int,
+                         merge_table=None, reduce_solid=None,
+                         sum_changed=None):
     """count -> Hamming cluster -> Bayesian subcluster -> expand ->
     correct, iterated (projects/hammer/main.cpp:118-260 with
-    count_do/cluster_do/bayes_do/expand_do/correct_do all on)."""
+    count_do/cluster_do/bayes_do/expand_do/correct_do all on).
+
+    The sharded corrector (``parallel.hammer_dist``) runs this loop on
+    each rank's block of the reads with three steps over the mesh, each
+    the identity here: ``merge_table(table, stats)`` makes the counted
+    table and statistics the whole batch's, ``reduce_solid`` ORs an
+    expansion round's solid mask over the ranks
+    (``bayes.expand_solid_chunked``) and ``sum_changed(n)`` sums the
+    changed bases, on which every rank stops alike."""
     total_changed = 0
     stats = {}
     for it in range(max_iterations):
         with device_scope("hammer_count", codes.device, it=it):
             table, qstats = bayes_mod.count_kmers_stats_chunked(
                 codes, lengths, quals, k)
+            if merge_table is not None:
+                table, qstats = merge_table(table, qstats)
         with device_scope("hammer_cluster", codes.device, it=it):
             clusters = cluster_kmers(
                 table.kmers, table.counts, table.num, k,
@@ -242,7 +270,8 @@ def _correct_reads_bayes(codes, lengths, quals, k: int,
         del clusters, qstats
         with device_scope("hammer_expand", codes.device, it=it):
             solid = bayes_mod.expand_solid_chunked(
-                codes, lengths, table, sub.solid, k)
+                codes, lengths, table, sub.solid, k,
+                reduce_solid=reduce_solid)
         with device_scope("hammer_vote", codes.device, it=it):
             hay = segments.fuse_words(table.kmers)
             res = _run_chunked(
@@ -250,6 +279,8 @@ def _correct_reads_bayes(codes, lengths, quals, k: int,
                     c, l, table, solid, sub.center_bases, k, hay),
                 codes, lengths, chunk_reads)
             changed = int(res.changed_bases)
+            if sum_changed is not None:
+                changed = sum_changed(changed)
         total_changed += changed
         stats = {"iterations": it + 1, "changed_bases": total_changed,
                  "solid_kmers": int(solid.sum()), "mode": "bayes"}

@@ -152,24 +152,29 @@ def pair_chunk_reads(max_placements: int, device: torch.device) -> int:
                                      1 << 16)
 
 
-def fill_paired_index_multi_chunked(ch1, ch2, is_shift: int,
-                                    chunk: int | None = None
-                                    ) -> PairedIndex:
-    """``fill_paired_index_multi`` over chunks of read pairs: the
-    candidate rows of each chunk are masked there, the kept rows of all
-    chunks are counted in one sort. Counts are integers, so the chunk
-    size changes nothing in the result."""
+def pair_rows_chunked(ch1, ch2, is_shift: int, chunk: int | None = None):
+    """``_pair_rows`` over chunks of read pairs, the candidate rows of
+    each chunk masked there: the kept (e1, e2, d) rows of all chunks."""
     R = ch1.oriented_edge.shape[0]
     if chunk is None:
         chunk = pair_chunk_reads(ch1.oriented_edge.shape[1],
                                  ch1.oriented_edge.device)
     if R <= chunk:
-        return fill_paired_index_multi(ch1, ch2, is_shift)
+        return _pair_rows(ch1, ch2, int(is_shift))
     parts = [_pair_rows(type(ch1)(*(f[lo:lo + chunk] for f in ch1)),
                         type(ch2)(*(f[lo:lo + chunk] for f in ch2)),
                         int(is_shift))
              for lo in range(0, R, chunk)]
-    return _count_rows(*(torch.cat(cols) for cols in zip(*parts)))
+    return tuple(torch.cat(cols) for cols in zip(*parts))
+
+
+def fill_paired_index_multi_chunked(ch1, ch2, is_shift: int,
+                                    chunk: int | None = None
+                                    ) -> PairedIndex:
+    """``fill_paired_index_multi`` over chunks of read pairs: the rows
+    of every chunk (``pair_rows_chunked``) counted in one sort. Counts
+    are integers, so the chunk size changes nothing in the result."""
+    return _count_rows(*pair_rows_chunked(ch1, ch2, is_shift, chunk))
 
 
 def _groups(e1, e2, extra_break=None):

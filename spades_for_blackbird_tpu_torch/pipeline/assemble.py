@@ -1,15 +1,19 @@
 """Single-K assembly, the K ladder and repeat resolution: reads ->
 simplified graph -> contigs and scaffolds.
 
-PyTorch counterpart of the JAX package's ``pipeline/assemble.py``,
-single-device branch. ``assemble_single_k`` counts (k+1)-mers, fits the
+PyTorch counterpart of the JAX package's ``pipeline/assemble.py``.
+``assemble_single_k`` counts (k+1)-mers, fits the
 coverage model, builds the vertex table, clips early tips, condenses
 unitigs, compacts, simplifies and emits contigs (the reference's per-K
 Construction -> GenomicInfoFiller -> Simplification -> ContigOutput).
 ``assemble_multi_k`` runs it once per K, each rung's contigs fed into the
 next rung's construction. ``repeat_resolution_multi`` maps paired
 libraries onto the final graph and extends, joins and scaffolds paths
-through it (the reference's RepeatResolution).
+through it (the reference's RepeatResolution). Where a process group of
+world size 2 or more is initialised (``parallel.mesh.auto_mesh``),
+construction, the read mapping and the pair fill run sharded over its
+ranks (``parallel/*``), as the JAX package's branches for more than one
+device do; every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ from ..mapping import index as eidx
 from ..models import bio
 from ..ops import dna
 from ..paired import insert_size, pair_info
+from ..parallel import (condense_dist, construction, kmer_exchange,
+                        mapping_dist)
+from ..parallel import mesh as mesh_mod
 from ..path_extend import loop_traverser, polisher, resolver, scaffolder
 from ..simplify import ec_threshold, runner
 from ..utils import timetrace
@@ -117,35 +124,74 @@ def clear_phase_presimplify(phase_dir: str, k: int) -> None:
         os.remove(_phase_path(phase_dir, k))
 
 
+def _count_table(codes, lengths, k: int, mesh) -> counter.KmerTable:
+    """The k-mer table of a read batch, trimmed: the chunked counter's,
+    or, with a mesh, this rank's hash partition of the table of all the
+    ranks' blocks (``parallel.kmer_exchange.make_sharded_counter``)."""
+    if mesh is None:
+        return counter.trim_table(counter.count_kmers_chunked(codes, lengths,
+                                                              k))
+    c, ln, _ = mesh_mod.shard_reads(mesh, codes, lengths)
+    return kmer_exchange.make_sharded_counter(mesh, k)(c, ln)
+
+
 def _construct(codes, lengths, k: int, min_kmer_count, extra_sequences,
-               early_tip_clip: bool, device):
+               early_tip_clip: bool, device, mesh=None):
     """Construction (+ coverage model on the reads' (k+1)-mer spectrum):
     (compacted graph, v_space, genomic info). Tables are trimmed to
     pow2(unique) right away: every later shape scales with their
-    capacity."""
+    capacity.
+
+    With a mesh (``parallel/*``) each rank counts its block of the reads
+    and holds the hash partition of the table it owns (the reference's
+    disk-bucket counter, kmer_index_builder.hpp:220-366). The coverage
+    model is fitted on the spectrum summed over the ranks, the same
+    integer histogram on every rank, so ``min_kmer_count="auto"``
+    resolves to the same cutoff on all of them; it is applied at once,
+    where the JAX package builds the graph once with no cutoff and again
+    with it: the same table. Early tip clipping needs the global
+    successor structure, so there the partitions are gathered to every
+    rank and the rest runs replicated: every rank holds the whole table
+    from then on, and builds the single-device graph from it. Without
+    early tips the vertex table is built by exchange and the graph by
+    routed lookups (debruijn_graph_constructor.hpp:390-520), no rank
+    holding more than its partitions until the per-instance arrays are
+    gathered. Every rank returns the same graph."""
     read_length = int(codes.shape[1])
     with _scope("count_kmers", device, k=k):
-        kp1 = counter.trim_table(
-            counter.count_kmers_chunked(codes, lengths, k + 1))
+        kp1 = _count_table(codes, lengths, k + 1, mesh)
     with _scope("coverage_model_fit", device, k=k):
-        ginfo = coverage_model.fit_coverage_model_hist(
-            coverage_model.count_spectrum_device(kp1.counts, kp1.num))
+        spectrum = coverage_model.count_spectrum_device(kp1.counts, kp1.num)
+        if mesh is not None:
+            spectrum = mesh.sum(torch.from_numpy(spectrum)).cpu().numpy()
+        ginfo = coverage_model.fit_coverage_model_hist(spectrum)
     extra = [s for s in extra_sequences or () if len(s) > k]
     if extra:
         # contigs chopped into read-shaped rows, counted like reads
         with _scope("count_extra_contigs", device, k=k):
             ec, el = _windows_from_sequences(extra, read_length, k + 1)
-            kp1 = counter.trim_table(counter.merge_tables(
-                kp1, counter.trim_table(counter.count_kmers_chunked(
-                    _to_device(ec, torch.uint8, device),
-                    _to_device(el, torch.int32, device), k + 1))))
+            kp1 = counter.trim_table(counter.merge_tables(kp1, _count_table(
+                _to_device(ec, torch.uint8, device),
+                _to_device(el, torch.int32, device), k + 1, mesh)))
     if min_kmer_count == "auto":  # --cov-cutoff auto
         min_kmer_count = max(2, int(ginfo.ec_bound))
     if min_kmer_count > 1:
         kp1 = counter.trim_table(counter.filter_min_count(kp1, min_kmer_count))
+    clip = early_tip_clip and read_length > k + 1
+    if mesh is not None and not clip:
+        with _scope("vertex_table", device, k=k):
+            vt = construction.make_sharded_vertex_builder(mesh, k)(kp1)
+        with _scope("condense", device, k=k):
+            g = condense_dist.make_sharded_graph_builder(mesh, k)(kp1, vt)
+            del kp1, vt
+            g, v_space = compact_graph(g)
+        return g, v_space, ginfo
+    if mesh is not None:
+        with _scope("gather_table", device, k=k):
+            kp1 = kmer_exchange.gather_table(mesh, kp1)
     with _scope("vertex_table", device, k=k):
         vt = extension.trim_vertex_table(extension.build_vertex_table(kp1, k))
-    if early_tip_clip and read_length > k + 1:
+    if clip:
         # pre-graph tip clipping on the extension index (EarlyTipClipper;
         # bound defaults to RL - K)
         with _scope("early_tips", device, k=k):
@@ -202,6 +248,11 @@ def assemble_single_k(codes, lengths, k: int,
         saved with it.
       phase_dir: directory of the pre-simplify checkpoint
         (``_save_phase_presimplify``).
+
+    Where a process group of world size 2 or more is initialised
+    (``parallel.mesh.auto_mesh``), construction runs sharded over it
+    (``_construct``) and every rank, passing the same reads,
+    simplifies the same graph and returns the same result.
     """
     if k % 2 == 0:
         raise ValueError(f"k must be odd (reference enforces this, "
@@ -213,8 +264,13 @@ def assemble_single_k(codes, lengths, k: int,
     if cfg is None:
         cfg = runner.SimplifyConfig(read_length=read_length)
 
+    mesh = mesh_mod.auto_mesh()
+    if mesh is not None:
+        mesh.check_device(device)
     loaded = (_load_phase_presimplify(phase_dir, k, device)
               if phase_dir else None)
+    if mesh is not None and not mesh.all(loaded is not None):
+        loaded = None    # every rank resumes, or none does
     if loaded is not None:
         g, v_space, ginfo = loaded
         _log.info(f"k{k}: resumed from pre-simplify phase checkpoint "
@@ -222,7 +278,7 @@ def assemble_single_k(codes, lengths, k: int,
     else:
         g, v_space, ginfo = _construct(codes, lengths, k, min_kmer_count,
                                        extra_sequences, early_tip_clip,
-                                       device)
+                                       device, mesh)
         if uneven_depth:
             # the spectrum mixture fit is unreliable under uneven depth
             # (genomic_info_filler.cpp:31-45, ec_threshold_finder.hpp:25)
@@ -321,17 +377,35 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
     lengths with the insert-size weight function
     (``pair_info.weighted_cluster_distances``, the reference's
     estimate_scaffolding_distance, distance_estimation.cpp:100-135).
+    Where a process group of world size 2 or more is initialised, the
+    mapping and the pair fill run sharded over it
+    (``parallel.mapping_dist``); every rank returns the same result.
     """
     device = resolve_device(device, g.seq_flat)
+    mesh = mesh_mod.auto_mesh()
+    if mesh is not None:
+        mesh.check_device(device)
     g = g.to(device)
     k = g.k
     with _scope("rr_build_index", device):
         idx = eidx.build_edge_index(g, k + 1, device=device)
 
     def chain_map(c, l):
+        """Read mapping fan-out: each rank maps its block of the reads
+        where there is a mesh (sequence_mapper_notifier.hpp:66), the
+        chunked single-device mapper otherwise."""
+        if mesh is not None:
+            return mapping_dist.map_reads_multi_sharded(
+                mesh, idx, g.seq_len, g.conj, c, l, k + 1, min_votes=1)
         ch = chunked.map_reads_multi_chunked(
             idx, g.seq_len, c, l, k + 1, min_votes=1, device=device)
         return mapper.normalize_chain(ch, g.conj)
+
+    def pair_fill(ch1, ch2, shift: int):
+        if mesh is not None:
+            return mapping_dist.fill_paired_index_sharded(mesh, ch1, ch2,
+                                                          shift)
+        return pair_info.fill_paired_index_multi_chunked(ch1, ch2, shift)
 
     def first_placement(ch):
         return mapper.ReadMapping(
@@ -371,12 +445,17 @@ def repeat_resolution_multi(g, libs, with_scaffolds: bool = False,
                 "insert_size_mad": float(stats.mad),
                 "pairs_used": int(stats.count),
             })
-        if stats.count == 0:
+        used = stats.count > 0
+        if mesh is not None:
+            # every rank holds the same mappings; the branch is taken on
+            # a reduced value all the same, so no rank can skip the
+            # pair fill's collectives alone
+            used = mesh.all(used)
+        if not used:
             continue
         mean_l2 = int(lengths2.sum()) / lengths2.shape[0]
         with _scope("rr_pair_fill", device):
-            pi = pair_info.fill_paired_index_multi_chunked(
-                ch1, ch2, int(round(stats.median - mean_l2)))
+            pi = pair_fill(ch1, ch2, int(round(stats.median - mean_l2)))
         del ch1, ch2
         spread = max(5, int(3 * stats.mad))
         if kind == "mp":

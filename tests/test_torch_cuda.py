@@ -623,3 +623,42 @@ def test_tools_card_equals_cpu(card, tmp_path):
                            str(d / "c.tsv"), "--device", dev]) == 0
         outs[dev] = [(d / n).read_bytes() for n in ("g.gfa", "c.tsv")]
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_sharded_counter_and_hammer_world1_nccl(card, tmp_path):
+    """A world-1 NCCL group on the card: the sharded (k+1)-mer counter
+    and the sharded corrector give the single-device path's bits."""
+    import datetime
+
+    import torch.distributed as dist
+    from spades_for_blackbird_tpu_torch.parallel import (
+        hammer_dist, kmer_exchange, mesh as mesh_mod)
+
+    genome = simulate.random_genome(3000, seed=23)
+    r1, q1, r2, q2 = simulate.simulate_paired_reads(
+        genome, 500, read_len=60, insert_mean=150.0, insert_sd=10.0,
+        error_rate=0.01, seed=24)
+    codes, lengths = dna.encode_reads(r1 + r2)
+    quals = np.stack([np.frombuffer(q.encode(), np.uint8) for q in q1 + q2])
+    c = torch.from_numpy(codes).to(card)
+    ln = torch.from_numpy(lengths).to(card)
+    q = torch.from_numpy(quals).to(card)
+    want_t = counter.trim_table(counter.count_kmers_chunked(c, ln, 22))
+    want_c, want_s = correct.correct_reads(c, ln, quals=q, device=card)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'init'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = mesh_mod.make_mesh()
+        got_t = kmer_exchange.make_sharded_counter(mesh, 22)(c, ln)
+        got_c, got_s = hammer_dist.make_sharded_hammer(mesh, 21)(c, ln, q)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    n = int(want_t.num)
+    assert int(got_t.num) == n
+    assert torch.equal(got_t.kmers[:n], want_t.kmers[:n])
+    assert torch.equal(got_t.counts[:n], want_t.counts[:n])
+    assert torch.equal(got_c, want_c)
+    assert got_s == want_s
