@@ -1,0 +1,9 @@
+"""seg_sum_roofline.assembly: percent of the hand kernel's device time that
+its published-peak bound accounts for, over every launch in the window
+(the assembly cells)."""
+
+from portbench.readers import seg_sum_roofline
+
+
+def read(run):
+    return seg_sum_roofline(run) if run.kind == "assembly" else None
