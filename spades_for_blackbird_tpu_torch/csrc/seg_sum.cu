@@ -46,6 +46,14 @@
 // Each run is summed by exactly one thread (short) or lane (long), from
 // the slot's value in `out` to the slot's value in `out`.
 //
+// Where the caller hands a counter buffer (`counts`, two uint64, zeroed;
+// the port's time trace does while it is on), each tile block adds its
+// rows below `limit` to counts[0] and its run heads below `limit` (the
+// slots the launch reaches) to counts[1], one atomicAdd each; the tiles
+// partition the rows, so the long-run blocks add nothing. The counting
+// kernels are instances of their own (kCount): a null buffer launches
+// the kernel without it.
+//
 // The entry sfb_seg_sum_chain runs one thread through n dependent adds:
 // what one add of a run's chain costs on the card, which chip_smoke.py
 // times for the kernel's bound.
@@ -112,6 +120,7 @@ struct Job {
   int tile;             // rows a tile; a longer run is long
   int chunk;            // rows a ring chunk of a long run
   int64_t n_long;       // long-run blocks: ceil(M / tile / 8)
+  unsigned long long* counts;  // kept rows, reached slots; or null
 };
 
 // dst[i] = src[i] for i = first, first + stride, ... < n
@@ -406,11 +415,12 @@ __device__ void long_runs(const Job<T, S>& jb, int64_t b,
 // search where it reaches past them) and its tail copied; each run head's
 // slot value loaded; (C) a thread a (run head, column) adds its run from
 // shared memory.
-template <typename T, typename S, bool kPerm>
+template <typename T, typename S, bool kPerm, bool kCount>
 __device__ void tile_runs(const Job<T, S>& jb, int64_t t,
                           unsigned char* smem) {
   __shared__ int x_head;  // the crossing run's head (tile row), or -1
   __shared__ int x_end;   // its end (tile row) where the window holds it
+  __shared__ int n_kept, n_heads;  // the tile's counts (kCount)
   const int L = jb.tile;
   const int64_t t0 = t * L;
   if (t0 >= jb.M) return;
@@ -434,9 +444,30 @@ __device__ void tile_runs(const Job<T, S>& jb, int64_t t,
     s_slot[0] = t0 > 0 ? jb.slot[t0 - 1] : (S)-1;
     x_head = -1;
     x_end = -1;
+    if (kCount) {
+      n_kept = 0;
+      n_heads = 0;
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
+
+  if (kCount) {  // rows below limit, and run heads among them
+    int kept = 0, heads = 0;
+    for (int i = tid; i < nt; i += kThreads) {
+      const S cur = s_slot[i + 1];
+      if (cur < jb.limit) {
+        ++kept;
+        heads += cur != s_slot[i];
+      }
+    }
+    kept = __reduce_add_sync(0xffffffffu, kept);
+    heads = __reduce_add_sync(0xffffffffu, heads);
+    if ((tid & 31) == 0) {
+      atomicAdd(&n_kept, kept);
+      atomicAdd(&n_heads, heads);
+    }
+  }
 
   if (kPerm) {
     gather<T, true>(s_val, jb.vals, s_perm, 0, nt * C, C, tid, kThreads);
@@ -453,6 +484,10 @@ __device__ void tile_runs(const Job<T, S>& jb, int64_t t,
     }
   }
   __syncthreads();
+  if (kCount && tid == 0) {
+    if (n_kept) atomicAdd(jb.counts, (unsigned long long)n_kept);
+    if (n_heads) atomicAdd(jb.counts + 1, (unsigned long long)n_heads);
+  }
   // the crossing run is ours if it starts here; a long-run block's if it
   // has more than L rows
   const bool ours = crosses && x_head >= 0;
@@ -513,13 +548,13 @@ __device__ void tile_runs(const Job<T, S>& jb, int64_t t,
   }
 }
 
-template <typename T, typename S, bool kPerm>
+template <typename T, typename S, bool kPerm, bool kCount>
 __global__ void __launch_bounds__(kThreads) seg_sum_kernel(Job<T, S> jb) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (blockIdx.x < jb.n_long)
     long_runs<T, S, kPerm>(jb, blockIdx.x, smem);
   else
-    tile_runs<T, S, kPerm>(jb, blockIdx.x - jb.n_long, smem);
+    tile_runs<T, S, kPerm, kCount>(jb, blockIdx.x - jb.n_long, smem);
 }
 
 template <typename T>
@@ -535,7 +570,7 @@ __global__ void add_chain_kernel(int64_t n, T* buf) {
   buf[8] = a;
 }
 
-template <typename T, typename S, bool kPerm>
+template <typename T, typename S, bool kPerm, bool kCount>
 int launch(const Job<T, S>& jb, cudaStream_t stream) {
   const size_t a16 = 15;
   const size_t tile_smem =
@@ -546,14 +581,14 @@ int launch(const Job<T, S>& jb, cudaStream_t stream) {
                            (size_t)kStages * jb.chunk * jb.C * sizeof(T);
   const size_t smem = tile_smem > long_smem ? tile_smem : long_smem;
   cudaError_t err = cudaFuncSetAttribute(
-      seg_sum_kernel<T, S, kPerm>,
+      seg_sum_kernel<T, S, kPerm, kCount>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // the long-run blocks, eight positions each, then the tiles
   const int64_t tiles = (jb.M + jb.tile - 1) / jb.tile;
   const int64_t blocks = jb.n_long + tiles;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  seg_sum_kernel<T, S, kPerm>
+  seg_sum_kernel<T, S, kPerm, kCount>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(jb);
   return (int)cudaGetLastError();
 }
@@ -561,15 +596,19 @@ int launch(const Job<T, S>& jb, cudaStream_t stream) {
 template <typename T, typename S>
 int dispatch(const void* slot, const void* perm, const void* vals,
              int64_t M, int C, int64_t limit, void* out, int tile,
-             int chunk, cudaStream_t stream) {
+             int chunk, void* counts, cudaStream_t stream) {
   if ((int64_t)tile * C > kMaxElems || (int64_t)chunk * C > kMaxElems)
     return (int)cudaErrorInvalidValue;
   const int64_t tiles = (M + tile - 1) / tile;
   Job<T, S> jb{(const S*)slot, (const T*)vals, (const int64_t*)perm, M, C,
                limit, (T*)out, tile, chunk,
-               (tiles + kThreads / 32 - 1) / (kThreads / 32)};
-  return perm ? launch<T, S, true>(jb, stream)
-              : launch<T, S, false>(jb, stream);
+               (tiles + kThreads / 32 - 1) / (kThreads / 32),
+               (unsigned long long*)counts};
+  if (counts)
+    return perm ? launch<T, S, true, true>(jb, stream)
+                : launch<T, S, false, true>(jb, stream);
+  return perm ? launch<T, S, true, false>(jb, stream)
+              : launch<T, S, false, false>(jb, stream);
 }
 
 }  // namespace
@@ -581,26 +620,28 @@ extern "C" {
 // vals: rows of C float32 (is_double 0) or float64; out: (>= limit, C) of
 // the same type, read and written in place at the slots below limit.
 // tile: rows a tile (a longer run is long), chunk: rows a ring chunk;
-// both >= 1, tile * C and chunk * C at most 2048. Returns a cudaError_t
-// (0 on success) of the launch.
+// both >= 1, tile * C and chunk * C at most 2048. counts: two uint64,
+// zeroed, that receive the kept rows and the reached slots; or null.
+// Returns a cudaError_t (0 on success) of the launch.
 int sfb_seg_sum(const void* slot, int slot_is_64, const void* perm,
                 const void* vals, int64_t M, int64_t C, int64_t limit,
                 void* out, int is_double, int tile, int chunk,
-                void* stream) {
+                void* stream, void* counts) {
   if (M <= 0 || C <= 0 || limit <= 0) return 0;
   if (tile <= 0 || chunk <= 0 || C > kMaxElems)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int c = (int)C;
   if (is_double)
-    return slot_is_64 ? dispatch<double, int64_t>(slot, perm, vals, M, c,
-                                                  limit, out, tile, chunk, st)
-                      : dispatch<double, int32_t>(slot, perm, vals, M, c,
-                                                  limit, out, tile, chunk, st);
+    return slot_is_64
+               ? dispatch<double, int64_t>(slot, perm, vals, M, c, limit, out,
+                                           tile, chunk, counts, st)
+               : dispatch<double, int32_t>(slot, perm, vals, M, c, limit, out,
+                                           tile, chunk, counts, st);
   return slot_is_64 ? dispatch<float, int64_t>(slot, perm, vals, M, c, limit,
-                                               out, tile, chunk, st)
+                                               out, tile, chunk, counts, st)
                     : dispatch<float, int32_t>(slot, perm, vals, M, c, limit,
-                                               out, tile, chunk, st);
+                                               out, tile, chunk, counts, st);
 }
 
 // one thread through n (a multiple of 8) dependent adds of buf[0..7] onto

@@ -2,7 +2,10 @@
 
 Copied from the JAX package's ``kmers/coverage_model.py``: the fit
 is NumPy and unchanged; only ``count_spectrum_device`` runs on the
-device, here with PyTorch.
+device, here with PyTorch. With the time trace on, the fit counts its
+likelihood evaluations (``fit_evaluations``: SciPy's ``nfev`` of each
+Nelder-Mead call, one an iteration of the mixture's EM), its EM rounds
+(``fit_rounds``) and the path that gave its answer (``fit_path.*``).
 
 Stand-in for the reference's mixture-model fit
 (assembler/src/common/modules/coverage_model/kmer_coverage_model.cpp:58-310,
@@ -19,6 +22,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..utils import timetrace
 
 
 @dataclass
@@ -189,6 +194,8 @@ def fit_reference_model_hist(bc: np.ndarray,
                      options={"maxiter": (2000 if last
                                           else 5 * 6 * it * 4),
                               "xatol": 1e-8, "fatol": 1e-8})
+        timetrace.count("fit_rounds")
+        timetrace.count("fit_evaluations", int(r.nfev))
         x = r.x
         it += 1
 
@@ -272,6 +279,8 @@ def fit_mixture_hist(bc: np.ndarray, max_count: int = 512,
     pi_err = 0.5
     xs_safe = np.maximum(xs, 1.0)
     for _ in range(iters):
+        timetrace.count("fit_rounds")
+        timetrace.count("fit_evaluations")
         # E step (zero-truncated geometric pmf: p (1-p)^(x-1))
         log_err = np.log(p_err) + (xs_safe - 1) * np.log1p(-p_err)
         log_gen = _nbinom_logpmf(xs_safe, gmean, gdisp)
@@ -347,11 +356,14 @@ def fit_coverage_model_hist(bc: np.ndarray) -> GenomicInfo:
     except Exception:
         fitted = None  # scipy edge cases: fall through like !converged_
     if fitted is not None:
+        timetrace.count("fit_path.reference")
         return fitted
     fitted = fit_mixture_hist(bc)
     if fitted is not None:
+        timetrace.count("fit_path.mixture")
         return fitted
     # valley fallback (uneven coverage / tiny samples)
+    timetrace.count("fit_path.valley")
     hist = bc[:257].copy()
     if len(bc) > 257:
         hist[-1] += bc[257:].sum()

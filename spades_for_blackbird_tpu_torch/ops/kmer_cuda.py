@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ..utils import timetrace
 from . import dna, kmer
 from .cuda_build import CudaLibrary
 
@@ -58,7 +59,8 @@ class KmerExtractKernel:
     otherwise. ``canonical_keys`` is the entry with the strand column.
 
     ``launches`` counts kernel launches of both entries, in ``launch``
-    (CPU calls do not count). ``library`` builds and loads
+    (CPU calls do not count); while the time trace is on, ``launch``
+    records each launch's shape there. ``library`` builds and loads
     ``csrc/kmer_extract.cu`` (``ops/cuda_build.py``).
     """
 
@@ -133,6 +135,9 @@ class KmerExtractKernel:
             raise RuntimeError("kmer_extract launch failed: "
                                + lib.sfb_error_string(err).decode())
         self.launches += 1
+        if timetrace.enabled():
+            timetrace.record_launch("kmer_extract", R=R, L=L, k=k,
+                                    strand=fwd is not None)
 
 
 extract_sort_keys = KmerExtractKernel()

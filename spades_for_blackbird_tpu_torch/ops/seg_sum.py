@@ -28,12 +28,14 @@ import ctypes
 
 import torch
 
+from ..utils import timetrace
 from .cuda_build import CudaLibrary
 
 FLOAT_TYPES = (torch.float32, torch.float64)
 SLOT_TYPES = (torch.int32, torch.int64)
 TILE_BYTES = 8192   # a tile's values: a run of more rows is a long run
 CHUNK_BYTES = 8192  # a long run's ring chunk; a row's values fit either
+COUNT_POOL = 1024   # launches counted from one zeroed buffer while tracing
 
 
 def tile_rows(cols: int, dtype: torch.dtype) -> int:
@@ -64,7 +66,8 @@ def seg_sum_plain(out: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
 def _declare(lib) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.sfb_seg_sum.restype = i
-    lib.sfb_seg_sum.argtypes = [p, i, p, p, i64, i64, i64, p, i, i, i, p]
+    lib.sfb_seg_sum.argtypes = [p, i, p, p, i64, i64, i64, p, i, i, i, p,
+                                p]
     lib.sfb_seg_sum_chain.restype = i
     lib.sfb_seg_sum_chain.argtypes = [i64, p, i, p]
     lib.sfb_seg_sum_error.restype = ctypes.c_char_p
@@ -74,11 +77,16 @@ def _declare(lib) -> None:
 class SegSumKernel:
     """Callable wrapper of ``csrc/seg_sum.cu`` with the contract of
     ``seg_sum_plain``. ``launches`` counts kernel launches (in
-    ``launch``; CPU calls and ``add_chain`` do not count)."""
+    ``launch``; CPU calls and ``add_chain`` do not count). While the time
+    trace is on, ``launch`` records each launch's shape there, with the
+    kept rows and reached slots that the kernel counts on the card."""
 
     def __init__(self):
         self.launches = 0
         self.library = CudaLibrary("seg_sum.cu", _declare)
+        self._pool = None      # (COUNT_POOL, 2) int64 zeros on the card
+        self._pool_stream = None
+        self._used = 0
 
     def __call__(self, out: torch.Tensor, slot: torch.Tensor,
                  vals: torch.Tensor, perm: torch.Tensor | None = None,
@@ -123,17 +131,40 @@ class SegSumKernel:
         lib = self.library.load()
         cols = vals.shape[1]
         with torch.cuda.device(out.device):
-            stream = torch.cuda.current_stream().cuda_stream
+            stream = torch.cuda.current_stream()
+            counts = self._trace_counts(stream) if timetrace.enabled() \
+                else None
             err = lib.sfb_seg_sum(
                 slot.data_ptr(), int(slot.dtype == torch.int64),
                 None if perm is None else perm.data_ptr(), vals.data_ptr(),
                 slot.shape[0], cols, limit, out.data_ptr(),
                 int(out.dtype == torch.float64), tile_rows(cols, out.dtype),
-                chunk_rows(cols, out.dtype), stream)
+                chunk_rows(cols, out.dtype), stream.cuda_stream,
+                None if counts is None else counts.data_ptr())
         if err:
             raise RuntimeError("seg_sum launch failed: "
                                + lib.sfb_seg_sum_error(err).decode())
         self.launches += 1
+        if counts is not None:
+            timetrace.record_launch(
+                "seg_sum", cols=cols, itemsize=out.element_size(),
+                slot_itemsize=slot.element_size(), perm=perm is not None,
+                limit=int(limit), M=slot.shape[0], kept=counts[0],
+                slots=counts[1])
+
+    def _trace_counts(self, stream) -> torch.Tensor:
+        """Two zeroed int64 on ``stream``'s card for one launch's kept
+        rows and reached slots: a row of a pool zeroed on that stream
+        ``COUNT_POOL`` launches at a time, so that tracing adds one fill
+        a pool and not one a launch."""
+        if (self._pool is None or self._used == COUNT_POOL
+                or self._pool_stream != stream):
+            self._pool = torch.zeros((COUNT_POOL, 2), dtype=torch.int64,
+                                     device=stream.device)
+            self._pool_stream = stream
+            self._used = 0
+        self._used += 1
+        return self._pool[self._used - 1]
 
     def add_chain(self, buf: torch.Tensor, n: int) -> None:
         """One thread through ``n`` (a multiple of 8) dependent adds of

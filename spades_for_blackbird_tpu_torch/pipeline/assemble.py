@@ -94,14 +94,21 @@ def _save_phase_presimplify(phase_dir: str, k: int, g, v_space: int,
     removes it. Keys and dtypes are the JAX package's, so either package
     reads the other's file."""
     os.makedirs(phase_dir, exist_ok=True)
-    arrays = interop.graph_to_saved_arrays(g)
+    with _scope("checkpoint_fetch", g.device):
+        arrays = interop.graph_to_saved_arrays(g)
+        if timetrace.enabled():
+            timetrace.count("bytes", sum(a.nbytes for a in arrays.values()))
     arrays["v_space"] = np.int64(v_space)
     arrays["ginfo_json"] = np.frombuffer(
         json.dumps(vars(ginfo)).encode(), np.uint8)
-    # np.savez appends .npz when missing: keep the tmp name suffixed
-    tmp = _phase_path(phase_dir, k) + ".tmp.npz"
-    np.savez_compressed(tmp, **arrays)
-    os.replace(tmp, _phase_path(phase_dir, k))
+    path = _phase_path(phase_dir, k)
+    with timetrace.scope("checkpoint_compress"):
+        # np.savez appends .npz when missing: keep the tmp name suffixed
+        tmp = path + ".tmp.npz"
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp, path)
+        if timetrace.enabled():
+            timetrace.count("bytes", os.path.getsize(path))
 
 
 def _load_phase_presimplify(phase_dir: str, k: int, device):
@@ -161,10 +168,13 @@ def _construct(codes, lengths, k: int, min_kmer_count, extra_sequences,
     with _scope("count_kmers", device, k=k):
         kp1 = _count_table(codes, lengths, k + 1, mesh)
     with _scope("coverage_model_fit", device, k=k):
-        spectrum = coverage_model.count_spectrum_device(kp1.counts, kp1.num)
-        if mesh is not None:
-            spectrum = mesh.sum(torch.from_numpy(spectrum)).cpu().numpy()
-        ginfo = coverage_model.fit_coverage_model_hist(spectrum)
+        with _scope("coverage_spectrum", device):
+            spectrum = coverage_model.count_spectrum_device(kp1.counts,
+                                                            kp1.num)
+            if mesh is not None:
+                spectrum = mesh.sum(torch.from_numpy(spectrum)).cpu().numpy()
+        with timetrace.scope("coverage_em"):
+            ginfo = coverage_model.fit_coverage_model_hist(spectrum)
     extra = [s for s in extra_sequences or () if len(s) > k]
     if extra:
         # contigs chopped into read-shaped rows, counted like reads

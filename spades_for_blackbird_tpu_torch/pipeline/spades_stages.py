@@ -41,6 +41,7 @@ from ..mapping import long_read
 from ..models import bio, plasmid, rna
 from ..mts import abundance
 from ..ops import dna
+from ..utils import timetrace
 from ..utils.device import resolve_device
 from ..utils.timetrace import device_scope
 from . import assemble, gap_closer, mismatch_correction
@@ -74,6 +75,21 @@ def _to_fr(b1, b2, orientation: str):
         _rc_batch(b2)
 
 
+def _parsed(load, *paths):
+    """``load(*paths)`` (a batch, or the two of a pair) inside the span
+    ``read_parse``, counting its reads and bases and the files' bytes on
+    disk."""
+    with timetrace.scope("read_parse"):
+        out = load(*paths, with_quals=True)
+        if timetrace.enabled():
+            for b in (out if isinstance(out, tuple) else (out,)):
+                timetrace.count("reads", b.num_reads)
+                timetrace.count("bases", int(b.lengths.sum()))
+            timetrace.count("file_bytes",
+                            sum(os.path.getsize(p) for p in paths))
+    return out
+
+
 def make_read_conversion(pe_pairs, interlaced, singles, log, mp_pairs=(),
                          pe_orientation: str = "fr",
                          mp_orientation: str = "rf", device=None):
@@ -95,7 +111,7 @@ def make_read_conversion(pe_pairs, interlaced, singles, log, mp_pairs=(),
             row += b1.num_reads + b2.num_reads
 
         for p1, p2 in pe_pairs:
-            b1, b2 = fastq.load_paired_reads(p1, p2, with_quals=True)
+            b1, b2 = _parsed(fastq.load_paired_reads, p1, p2)
             _to_fr(b1, b2, pe_orientation)
             add_pair(b1, b2, "pe")
             log(f"loaded paired library {p1} + {p2}: {b1.num_reads} pairs"
@@ -103,13 +119,13 @@ def make_read_conversion(pe_pairs, interlaced, singles, log, mp_pairs=(),
                    if pe_orientation != "fr" else ""))
         for p1, p2 in mp_pairs:
             # mate pairs default RF ("outie", library_fwd.hpp MatePairs)
-            b1, b2 = fastq.load_paired_reads(p1, p2, with_quals=True)
+            b1, b2 = _parsed(fastq.load_paired_reads, p1, p2)
             _to_fr(b1, b2, mp_orientation)
             add_pair(b1, b2, "mp")
             log(f"loaded mate-pair library {p1} + {p2}: "
                 f"{b1.num_reads} pairs ({mp_orientation}->fr)")
         for ip in interlaced:
-            b = fastq.load_reads(ip, with_quals=True)
+            b = _parsed(fastq.load_reads, ip)
             # even rows = first mates, odd = second; split into halves
             q = b.quals
             ev = fastq.ReadBatch(b.codes[0::2], b.lengths[0::2], None,
@@ -119,15 +135,17 @@ def make_read_conversion(pe_pairs, interlaced, singles, log, mp_pairs=(),
             add_pair(ev, od, "pe")
             log(f"loaded interlaced library {ip}: {b.num_reads // 2} pairs")
         for sp in singles:
-            b = fastq.load_reads(sp, with_quals=True)
+            b = _parsed(fastq.load_reads, sp)
             batches.append(b)
             row += b.num_reads
             log(f"loaded single library {sp}: {b.num_reads} reads")
         batch = fastq.concat_batches(batches)
-        ctx.codes = torch.from_numpy(
-            np.ascontiguousarray(batch.codes)).to(device)
-        ctx.lengths = torch.from_numpy(
-            np.ascontiguousarray(batch.lengths)).to(device)
+        with device_scope("read_upload", device):
+            codes = np.ascontiguousarray(batch.codes)
+            lengths = np.ascontiguousarray(batch.lengths)
+            ctx.codes = torch.from_numpy(codes).to(device)
+            ctx.lengths = torch.from_numpy(lengths).to(device)
+            timetrace.count("bytes", codes.nbytes + lengths.nbytes)
         ctx.quals = batch.quals  # None when any library lacks qualities
         ctx.paired_ranges = paired_ranges
         ctx.read_length = int(batch.lengths.max()) if batch.num_reads else 0

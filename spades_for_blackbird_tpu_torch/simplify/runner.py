@@ -29,7 +29,6 @@ import torch
 from ..graph.graph import Graph, edge_mask
 from ..utils.logger import get_logger
 from ..utils.timetrace import device_scope
-from ..utils.timetrace import scope as _scope
 from . import advanced, passes
 from .recondense import recondense
 from .superbubble import collapse_superbubbles
@@ -174,7 +173,7 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
     _log.debug(f"simplification cycle: {cfg.rounds} rounds, "
                f"ec_len {ec_len}, final ec threshold "
                f"{final_ec_threshold:.2f}, bulge_len {bulge_len}")
-    with _scope("simplify_cycle", rounds=cfg.rounds):
+    with device_scope("simplify_cycle", g.device, rounds=cfg.rounds):
         for i in range(cfg.rounds):
             # iterative threshold ramp (IterativeThresholdsRun)
             ec_thr = final_ec_threshold * (i + 1) / cfg.rounds
@@ -233,7 +232,7 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
                 g = recondense(g, v_space)
 
     if cfg.complex_tc_enabled:
-        with _scope("complex_tips"):
+        with device_scope("complex_tips", g.device):
             g, v_space, n = advanced.clip_complex_tips(
                 g, v_space, max_edge_len=cfg.complex_tc_max_edge_len,
                 max_path_len=_tip_length(k, rl, cfg.complex_tc_lb),
@@ -243,7 +242,7 @@ def simplify_graph(g: Graph, v_space: int, ec_bound: float,
 
     if cfg.path_bulge_enabled:
         prot = _protected(protected_fn, g)
-        with _scope("path_bulges"):
+        with device_scope("path_bulges", g.device):
             g, v_space, n = advanced.remove_path_bulges(
                 g, v_space, max_length=bulge_len,
                 max_coverage=cfg.bulge_max_coverage,

@@ -188,10 +188,35 @@ def test_restart_from(small, tmp_path, logger_untouched):
         ["checkpoint.dat", "phases", "read_conversion", "k21", "k33",
          "repeat_resolution", "contig_output"])
     trace = json.loads((out / "spades_time_trace.json").read_text())
-    names = {ev["name"] for ev in trace["traceEvents"]}
+    events = trace["traceEvents"]
+    names = {ev["name"] for ev in events}
     assert {"stage:read_conversion", "stage:k21", "stage:k33",
             "stage:contig_output", "checkpoint_save", "count_kmers",
-            "count_extra_contigs", "simplify"} <= names
+            "count_extra_contigs", "simplify", "read_parse", "read_upload",
+            "checkpoint_fetch", "checkpoint_compress", "coverage_spectrum",
+            "coverage_em", "simplify_cycle"} <= names
+    # every span has an id, and every parent names a span of the dump
+    # that holds it
+    by_id = {ev["id"]: ev for ev in events}
+    assert len(by_id) == len(events)
+    for ev in events:
+        assert {"name", "ph", "ts", "dur"} <= ev.keys()
+        if ev["parent"] is not None:
+            up = by_id[ev["parent"]]
+            assert up["ts"] <= ev["ts"] + 1
+            assert ev["ts"] + ev["dur"] <= up["ts"] + up["dur"] + 1
+    parent_of = {ev["name"]: by_id[ev["parent"]]["name"] for ev in events
+                 if ev["parent"] is not None}
+    assert parent_of["read_parse"] == "stage:read_conversion"
+    assert parent_of["coverage_em"] == "coverage_model_fit"
+    assert parent_of["checkpoint_compress"] == "phase_checkpoint"
+    parse = next(ev for ev in events if ev["name"] == "read_parse")
+    assert parse["args"]["counts"]["reads"] > 0
+    assert parse["args"]["counts"]["file_bytes"] == os.path.getsize(small)
+    em = [ev["args"]["counts"] for ev in events if ev["name"] == "coverage_em"]
+    assert len(em) == 2 and all(c["fit_evaluations"] > 0 and sum(
+        v for key, v in c.items() if key.startswith("fit_path.")) == 1
+        for c in em)
     first = {name: (out / name).read_bytes() for name in OUTPUTS}
     assert cli.main(argv + ["--restart-from", "k33"]) == 0
     assert first == {name: (out / name).read_bytes() for name in OUTPUTS}

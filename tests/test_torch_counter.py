@@ -20,7 +20,8 @@ from spades_for_blackbird_tpu_torch.kmers import counter  # noqa: E402
 from spades_for_blackbird_tpu_torch.kmers import coverage_model  # noqa: E402
 from spades_for_blackbird_tpu_torch.ops import (  # noqa: E402
     dna, kmer, segments)
-from spades_for_blackbird_tpu_torch.utils import simulate  # noqa: E402
+from spades_for_blackbird_tpu_torch.utils import (  # noqa: E402
+    simulate, timetrace)
 
 COUNT_KS = [22, 34, 56, 78, 128]  # (k+1)-mer sizes of the K ladders
 
@@ -148,8 +149,18 @@ def test_count_spectrum_matches_jax():
     h = coverage_model.count_spectrum_device(t.counts, t.num)
     jh = jcov.count_spectrum_device(jt.counts, jt.num)
     assert np.array_equal(h, jh)
-    assert vars(coverage_model.fit_coverage_model_hist(h)) == \
-        vars(jcov.fit_coverage_model_hist(jh))
+    # with the time trace on, the fit counts its likelihood evaluations
+    # and the path that answered, and gives the reference's answer
+    timetrace.enable()
+    try:
+        fitted = coverage_model.fit_coverage_model_hist(h)
+    finally:
+        timetrace.disable()
+    assert vars(fitted) == vars(jcov.fit_coverage_model_hist(jh))
+    counts = timetrace.counters()
+    assert counts["fit_evaluations"] > 0 and counts["fit_rounds"] > 0
+    assert [n for n in counts if n.startswith("fit_path.")] in (
+        ["fit_path.reference"], ["fit_path.mixture"], ["fit_path.valley"])
 
 
 def test_chunk_size_on_cpu_is_the_fixed_default():

@@ -6,7 +6,8 @@ floats (many rows on few slots, magnitudes from 2^-60 to 2^60, signed
 zeros, a dropped slot); the same rows in a shuffled order must give
 other bits, so the comparison can fail. The kernel itself is held to its
 plain version on the card by tests/test_torch_cuda.py and
-``chip_smoke.py`` phase 2."""
+``chip_smoke.py`` phase 2; its counts of kept rows and reached slots, by
+the tests marked ``cuda`` at the end of this file."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ torch.set_num_threads(1)
 
 from spades_for_blackbird_tpu_torch.ops import segments  # noqa: E402
 from spades_for_blackbird_tpu_torch.ops import seg_sum  # noqa: E402
+from spades_for_blackbird_tpu_torch.utils import timetrace  # noqa: E402
 
 
 def _adversarial(n, M, cols, dtype, seed):
@@ -165,3 +167,58 @@ def test_sorted_slots_keys_int32_below_2_31_and_drop_last():
     assert slot.tolist() == [0, 2, 2, 5, 5, 9, 1 << 31]
     assert seg_sum.tile_rows(1, torch.float32) * 4 == seg_sum.TILE_BYTES
     assert seg_sum.tile_rows(21, torch.float32) >= 1
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one slot holds every row",
+                                  "a run longer than any tile",
+                                  "C = 21 float32",
+                                  "float64 with signed zeros and the "
+                                  "dropped slot",
+                                  "all rows dropped"])
+def test_kernel_counts_kept_rows_and_reached_slots(card, case):
+    """With the time trace on, the kernel counts on the card the rows
+    below the limit and the slots they reach, as plain torch counts
+    them, with int32 and int64 slots, through the permutation and on
+    copied rows, and its sums keep their bits; with the trace off a
+    launch leaves no record and no counter buffer."""
+    out, idx, src, n = _route_case(case.replace("all rows dropped",
+                                                "one slot holds every row"))
+    if case == "all rows dropped":
+        idx = torch.full_like(idx, n)
+    cols = out.shape[1] if out.dim() == 2 else 1
+    out = out.reshape(-1, cols).to(card)
+    rows = src.reshape(-1, cols).to(card)
+    slot, perm = segments.sorted_slots(idx.to(card), n)
+    inside = slot < n
+    want = [int(inside.sum()), int(torch.unique(slot[inside]).numel())]
+    kernel = seg_sum.SegSumKernel()
+    timetrace.enable()
+    timetrace.disable()
+    plain = kernel(out.clone(), slot, rows, perm=perm, limit=n)
+    assert timetrace.launches() == [] and kernel._pool is None
+    got = []
+    timetrace.enable()
+    try:
+        for keys in (slot, slot.to(torch.int64)):
+            got.append(kernel(out.clone(), keys, rows, perm=perm, limit=n))
+            got.append(kernel(out.clone(), keys, rows[perm], limit=n))
+    finally:
+        timetrace.disable()
+    for g in got:
+        assert torch.equal(_bits(g), _bits(plain))
+    records = timetrace.launches()
+    assert [(r["kernel"], r["slot_itemsize"], r["perm"]) for r in records] \
+        == [("seg_sum", 4, True), ("seg_sum", 4, False),
+            ("seg_sum", 8, True), ("seg_sum", 8, False)]
+    for r in records:
+        assert (r["cols"], r["itemsize"], r["limit"], r["M"]) == (
+            cols, out.element_size(), n, len(idx))
+        assert [r["kept"], r["slots"]] == want
