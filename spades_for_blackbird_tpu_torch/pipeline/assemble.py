@@ -6,6 +6,9 @@ PyTorch counterpart of the JAX package's ``pipeline/assemble.py``.
 coverage model, builds the vertex table, clips early tips, condenses
 unitigs, compacts, simplifies and emits contigs (the reference's per-K
 Construction -> GenomicInfoFiller -> Simplification -> ContigOutput).
+Each rung's coverage fit runs on a host worker thread while the main
+thread builds the graph and writes the pre-simplify save; the rung waits
+for it only where its answer is first read (``_join_fit``).
 ``assemble_multi_k`` runs it once per K, each rung's contigs fed into the
 next rung's construction. ``repeat_resolution_multi`` maps paired
 libraries onto the final graph and extends, joins and scaffolds paths
@@ -22,6 +25,8 @@ import contextlib
 import dataclasses
 import json
 import os
+import zipfile
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -88,27 +93,51 @@ def _phase_path(phase_dir: str, k: int) -> str:
 
 
 def _save_phase_presimplify(phase_dir: str, k: int, g, v_space: int,
-                            ginfo) -> None:
+                            ginfo) -> coverage_model.GenomicInfo:
     """Checkpoint inside a K stage, just before simplification: a resumed
     run loads it and skips counting and construction; the finished stage
     removes it. Keys and dtypes are the JAX package's, so either package
-    reads the other's file."""
+    reads the other's file.
+
+    The zip is written as ``np.savez_compressed`` writes it (numpy's
+    ``_savez``): the same members in the same order, deflated. ``ginfo``
+    may be a pending fit (``_join_fit``): it is joined once the graph's
+    members are deflated, so the fit runs on beside the deflate (zlib
+    releases the GIL), and ``ginfo_json`` goes in last. Returns the
+    genomic info."""
     os.makedirs(phase_dir, exist_ok=True)
     with _scope("checkpoint_fetch", g.device):
         arrays = interop.graph_to_saved_arrays(g)
         if timetrace.enabled():
             timetrace.count("bytes", sum(a.nbytes for a in arrays.values()))
     arrays["v_space"] = np.int64(v_space)
-    arrays["ginfo_json"] = np.frombuffer(
-        json.dumps(vars(ginfo)).encode(), np.uint8)
     path = _phase_path(phase_dir, k)
-    with timetrace.scope("checkpoint_compress"):
-        # np.savez appends .npz when missing: keep the tmp name suffixed
-        tmp = path + ".tmp.npz"
-        np.savez_compressed(tmp, **arrays)
-        os.replace(tmp, path)
-        if timetrace.enabled():
-            timetrace.count("bytes", os.path.getsize(path))
+    tmp = path + ".tmp.npz"
+    zipf = zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED, allowZip64=True)
+    try:
+        with timetrace.scope("checkpoint_compress"):
+            for key, value in arrays.items():
+                _write_npy(zipf, key, value)
+        ginfo = _join_fit(ginfo)
+        with timetrace.scope("checkpoint_compress"):
+            _write_npy(zipf, "ginfo_json", np.frombuffer(
+                json.dumps(vars(ginfo)).encode(), np.uint8))
+            zipf.close()
+            os.replace(tmp, path)
+            if timetrace.enabled():
+                timetrace.count("bytes", os.path.getsize(path))
+    except BaseException:
+        zipf.close()
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
+        raise
+    return ginfo
+
+
+def _write_npy(zipf: zipfile.ZipFile, key: str, value) -> None:
+    # a member as numpy's _savez writes it, zip64 forced (numpy gh-10776)
+    with zipf.open(key + ".npy", "w", force_zip64=True) as f:
+        np.lib.format.write_array(f, np.asanyarray(value))
 
 
 def _load_phase_presimplify(phase_dir: str, k: int, device):
@@ -142,12 +171,66 @@ def _count_table(codes, lengths, k: int, mesh) -> counter.KmerTable:
     return kmer_exchange.make_sharded_counter(mesh, k)(c, ln)
 
 
+_fit_pool: ThreadPoolExecutor | None = None
+
+
+def _submit_fit(spectrum: np.ndarray, k: int) -> Future:
+    """The coverage model of ``spectrum``, fitted on the host worker
+    thread: NumPy and SciPy on a NumPy array, no tensor and no card."""
+    global _fit_pool
+    if _fit_pool is None:
+        _fit_pool = ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix="coverage_fit")
+
+    def fit():
+        with timetrace.scope("coverage_model_fit", k=k):
+            with timetrace.scope("coverage_em"):
+                return coverage_model.fit_coverage_model_hist(spectrum)
+    return _fit_pool.submit(fit)
+
+
+def _forget_fit_pool() -> None:
+    global _fit_pool
+    _fit_pool = None  # a forked child has no worker thread
+
+
+os.register_at_fork(after_in_child=_forget_fit_pool)
+
+
+def _join_fit(fit) -> coverage_model.GenomicInfo:
+    """The genomic info of ``fit``: a ``GenomicInfo`` as it is; a pending
+    fit waited for inside the span ``coverage_wait``, which counts
+    ``fit_joined`` and, where the fit had ended already, ``fit_ready``.
+    A fit that raised raises here, on the caller's thread."""
+    if not isinstance(fit, Future):
+        return fit
+    with timetrace.scope("coverage_wait"):
+        timetrace.count("fit_joined")
+        if fit.done():
+            timetrace.count("fit_ready")
+        return fit.result()
+
+
 def _construct(codes, lengths, k: int, min_kmer_count, extra_sequences,
                early_tip_clip: bool, device, mesh=None):
     """Construction (+ coverage model on the reads' (k+1)-mer spectrum):
-    (compacted graph, v_space, genomic info). Tables are trimmed to
-    pow2(unique) right away: every later shape scales with their
-    capacity.
+    (compacted graph, v_space, genomic info); ``_construct_pending`` with
+    its fit joined at once."""
+    g, v_space, fit = _construct_pending(codes, lengths, k, min_kmer_count,
+                                         extra_sequences, early_tip_clip,
+                                         device, mesh)
+    return g, v_space, _join_fit(fit)
+
+
+def _construct_pending(codes, lengths, k: int, min_kmer_count,
+                       extra_sequences, early_tip_clip: bool, device,
+                       mesh=None):
+    """Construction, the coverage model's fit on the reads' (k+1)-mer
+    spectrum left running on the worker thread (``_submit_fit``):
+    (compacted graph, v_space, fit), the fit pending or, where
+    ``min_kmer_count="auto"`` read it, its genomic info (``_join_fit``
+    takes both). Tables are trimmed to pow2(unique) right away: every
+    later shape scales with their capacity.
 
     With a mesh (``parallel/*``) each rank counts its block of the reads
     and holds the hash partition of the table it owns (the reference's
@@ -165,26 +248,28 @@ def _construct(codes, lengths, k: int, min_kmer_count, extra_sequences,
     holding more than its partitions until the per-instance arrays are
     gathered. Every rank returns the same graph."""
     read_length = int(codes.shape[1])
-    with _scope("count_kmers", device, k=k):
-        kp1 = _count_table(codes, lengths, k + 1, mesh)
-    with _scope("coverage_model_fit", device, k=k):
-        with _scope("coverage_spectrum", device):
-            spectrum = coverage_model.count_spectrum_device(kp1.counts,
-                                                            kp1.num)
-            if mesh is not None:
-                spectrum = mesh.sum(torch.from_numpy(spectrum)).cpu().numpy()
-        with timetrace.scope("coverage_em"):
-            ginfo = coverage_model.fit_coverage_model_hist(spectrum)
     extra = [s for s in extra_sequences or () if len(s) > k]
     if extra:
-        # contigs chopped into read-shaped rows, counted like reads
-        with _scope("count_extra_contigs", device, k=k):
+        # contigs chopped into read-shaped rows, counted like reads; the
+        # chop is a Python loop, run before the fit starts so that the
+        # two do not take turns at the interpreter lock
+        with timetrace.scope("count_extra_contigs", k=k):
             ec, el = _windows_from_sequences(extra, read_length, k + 1)
+    with _scope("count_kmers", device, k=k):
+        kp1 = _count_table(codes, lengths, k + 1, mesh)
+    with _scope("coverage_spectrum", device):
+        spectrum = coverage_model.count_spectrum_device(kp1.counts, kp1.num)
+        if mesh is not None:
+            spectrum = mesh.sum(torch.from_numpy(spectrum)).cpu().numpy()
+    fit = _submit_fit(spectrum, k)
+    if extra:
+        with _scope("count_extra_contigs", device, k=k):
             kp1 = counter.trim_table(counter.merge_tables(kp1, _count_table(
                 _to_device(ec, torch.uint8, device),
                 _to_device(el, torch.int32, device), k + 1, mesh)))
-    if min_kmer_count == "auto":  # --cov-cutoff auto
-        min_kmer_count = max(2, int(ginfo.ec_bound))
+    if min_kmer_count == "auto":  # --cov-cutoff auto: the fit's first reader
+        fit = _join_fit(fit)
+        min_kmer_count = max(2, int(fit.ec_bound))
     if min_kmer_count > 1:
         kp1 = counter.trim_table(counter.filter_min_count(kp1, min_kmer_count))
     clip = early_tip_clip and read_length > k + 1
@@ -195,7 +280,7 @@ def _construct(codes, lengths, k: int, min_kmer_count, extra_sequences,
             g = condense_dist.make_sharded_graph_builder(mesh, k)(kp1, vt)
             del kp1, vt
             g, v_space = compact_graph(g)
-        return g, v_space, ginfo
+        return g, v_space, fit
     if mesh is not None:
         with _scope("gather_table", device, k=k):
             kp1 = kmer_exchange.gather_table(mesh, kp1)
@@ -215,7 +300,7 @@ def _construct(codes, lengths, k: int, min_kmer_count, extra_sequences,
         g = condense.build_graph(kp1, vt, k)
         del kp1, vt
         g, v_space = compact_graph(g)
-    return g, v_space, ginfo
+    return g, v_space, fit
 
 
 def assemble_single_k(codes, lengths, k: int,
@@ -286,18 +371,21 @@ def assemble_single_k(codes, lengths, k: int,
         _log.info(f"k{k}: resumed from pre-simplify phase checkpoint "
                   f"(E2={g.capacity})")
     else:
-        g, v_space, ginfo = _construct(codes, lengths, k, min_kmer_count,
-                                       extra_sequences, early_tip_clip,
-                                       device, mesh)
+        # ginfo is the pending fit until its first reader joins it
+        g, v_space, ginfo = _construct_pending(
+            codes, lengths, k, min_kmer_count, extra_sequences,
+            early_tip_clip, device, mesh)
         if uneven_depth:
             # the spectrum mixture fit is unreliable under uneven depth
             # (genomic_info_filler.cpp:31-45, ec_threshold_finder.hpp:25)
             with _scope("uneven_ec_bound", device, k=k):
-                ginfo = dataclasses.replace(
-                    ginfo, ec_bound=ec_threshold.uneven_ec_bound(g))
+                bound = ec_threshold.uneven_ec_bound(g)
+            ginfo = dataclasses.replace(_join_fit(ginfo), ec_bound=bound)
         if phase_dir:
             with _scope("phase_checkpoint", device, k=k):
-                _save_phase_presimplify(phase_dir, k, g, v_space, ginfo)
+                ginfo = _save_phase_presimplify(phase_dir, k, g, v_space,
+                                                ginfo)
+        ginfo = _join_fit(ginfo)
 
     _log.info(f"simplify entry shapes: E2={g.capacity} "
               f"flat={g.seq_flat.shape[0]} V={v_space} k={k} "
